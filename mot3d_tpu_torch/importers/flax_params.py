@@ -1,0 +1,100 @@
+"""Flax parameter trees -> the port's `state_dict`s.
+
+The port's modules carry the flax submodule names (`backbone.resnet.res2_0.
+Conv_0`, `voxel_encoder.Dense_1`, ...), so a flax leaf path joined with dots
+names its torch parameter; only the layouts differ.  The port keeps its own
+copies of the layout rules (the JAX package's `importers/torch_export.py`
+holds the same tables for detectron2 export):
+
+  - Conv kernel (k..., I, O) -> weight (O, I, k...);
+  - ConvTranspose kernel (k..., I, O) -> weight (I, O, k...) with the
+    spatial axes flipped: flax does not flip the kernel
+    (`transpose_kernel=False`), torch's transposed convolution does;
+  - Dense kernel (I, O) -> Linear weight (O, I);
+  - GroupNorm scale -> weight;
+  - BoxHead `fc1_kernel` (7, 7, C, W) -> `fc1.weight` (W, 7 * 7 * C): the
+    port flattens the pooled (7, 7, C) block channels-last, as flax
+    contracts it, so the rows need no reordering (likewise the voxel
+    encoder's Dense after its NDHWC flatten).
+
+The inputs are nested dicts of numpy arrays (e.g. `jax.device_get` of
+`model.init(...)`), with or without the top-level "params" key.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from mot3d_tpu_torch.config import Config
+from mot3d_tpu_torch.models.norms import check_norm
+
+
+def _conv(k: np.ndarray) -> np.ndarray:
+    nd = k.ndim
+    return np.transpose(k, (nd - 1, nd - 2) + tuple(range(nd - 2)))
+
+
+def _conv_transpose(k: np.ndarray) -> np.ndarray:
+    nd = k.ndim
+    k = k[(slice(None, None, -1),) * (nd - 2)]
+    return np.transpose(k, (nd - 2, nd - 1) + tuple(range(nd - 2)))
+
+
+def _leaf(path, value) -> tuple:
+    """One flax leaf -> (torch key, array)."""
+    *mods, name = path
+    arr = np.asarray(value, np.float32)
+    if name == "fc1_kernel":
+        return ".".join(mods + ["fc1", "weight"]), arr.reshape(
+            -1, arr.shape[-1]).T
+    if name == "fc1_bias":
+        return ".".join(mods + ["fc1", "bias"]), arr
+    if name == "kernel":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif mods[-1].startswith("ConvTranspose"):
+            arr = _conv_transpose(arr)
+        else:
+            arr = _conv(arr)
+        return ".".join(mods + ["weight"]), arr
+    if name == "scale":
+        return ".".join(mods + ["weight"]), arr
+    if name == "bias":
+        return ".".join(mods + ["bias"]), arr
+    raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _state_dict(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    tree = flax_params.get("params", flax_params)
+    return {key: torch.from_numpy(np.array(arr, order="C", copy=True))
+            for key, arr in (_leaf(p, v) for p, v in _flatten(tree))}
+
+
+def mask_rcnn_state_dict(flax_params: Mapping[str, Any],
+                         cfg: Config) -> Dict[str, torch.Tensor]:
+    """`mot3d_tpu.models.mask_rcnn.MaskRCNN` params -> the state_dict of
+    `mot3d_tpu_torch.models.mask_rcnn.MaskRCNN(cfg.detection)`."""
+    check_norm(cfg.detection.norm)
+    return _state_dict(flax_params)
+
+
+def tracker_state_dict(flax_params: Mapping[str, Any],
+                       cfg: Config) -> Dict[str, torch.Tensor]:
+    """`mot3d_tpu.models.mpn.TrackerModel` params -> the state_dict of
+    `mot3d_tpu_torch.models.mpn.TrackerModel(cfg.graph)`."""
+    if cfg.graph.time_aware_mp:
+        raise NotImplementedError(
+            "graph.time_aware_mp=True is not ported yet: ROADMAP.md Queue 1, "
+            "item 'Time-aware message passing'")
+    return _state_dict(flax_params)

@@ -1,0 +1,71 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked `gpu`: each test decides in its body whether there is a CUDA device
+and skips without one.  On a machine with a card:
+
+    python -m pytest tests/test_torch_port_gpu.py -q -m gpu
+
+The kernels are built with -fmad=false and evaluate the plain versions'
+expressions in the same order, so the comparisons are exact; the stated
+tolerances (1e-5 mean-kNN, 2e-5 feats) are the contract of the JAX package's
+kernel tests.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("candidates", [256, 0])
+def test_knn_outlier_kernel_matches_plain(candidates):
+    from mot3d_tpu_torch.geometry.outlier import (_threshold_keep,
+                                                  candidate_columns)
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(16, 1024, 3)).astype(np.float32) * 0.1
+    pts[:, :30] *= 30
+    valid = rng.uniform(size=(16, 1024)) > 0.2
+    pts, valid = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+    cols, k = candidate_columns(1024, candidates, 20, dev)
+    valid[0, cols.long()] = False
+    before = k1.launches.count
+    got = k1.knn_mean_dists(pts, valid, cols, k)
+    want = k1.knn_mean_dists_plain(pts, valid, cols, k)
+    assert k1.launches.count == before + 1
+    assert float((got - want).abs()[valid].max()) <= 1e-5
+    assert torch.equal(_threshold_keep(got, valid, 2.0, 100),
+                       _threshold_keep(want, valid, 2.0, 100))
+
+
+def test_pose_extract_kernel_matches_plain():
+    from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.pose.extraction import grid_extract
+
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    s, f = 32, 4
+    x0 = rng.uniform(-20, 300, s)
+    y0 = rng.uniform(-20, 220, s)
+    boxes = np.stack([x0, y0, x0 + rng.uniform(8, 160, s),
+                      y0 + rng.uniform(8, 120, s)], 1)
+    args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.uniform(size=(s, 28, 28, 3)), rng.uniform(size=(s, 28, 28)),
+        boxes, rng.uniform(0.5, 5, (f, 240, 320)))]
+    intr = torch.tensor([[292.9, 0, 159.5], [0, 292.9, 119.5], [0, 0, 1]],
+                        device=dev)
+    before = k2.launches.count
+    feats, valid = k2.pose_extract(*args, intr, 32)
+    feats_w, valid_w = grid_extract(*args, intr, 32)
+    assert k2.launches.count == before + 1
+    assert torch.equal(valid, valid_w)
+    assert float((feats - feats_w).abs().max()) <= 2e-5

@@ -20,6 +20,19 @@ Phases, one JSON line each; any failure exits non-zero:
      detections;
   7. one sequence of the main path under torch.profiler (device time by
      kernel, device idle share);
+  8. K3 (exact NMS) against its plain version: adversarial cases (ties,
+     chains, invalid rows, odd K) and the evaluation path's shapes, with
+     times;
+  9. the reference-parity evaluation path at full width: the detector in
+     import mode (`import_config`: affine norms, stride on the 1x1, torch
+     voxel reshape, anchor offset 0) with exact NMS (K3 on the path),
+     random weights and affine parameters from --seed, one warm-up and
+     three timed sequences through `make_sequence_infer_step`, then one
+     device-to-host copy, `Tracker.assemble`, GT trajectories and MOTA on
+     the host; one further sequence with the NOCS bin head; a host-only
+     oracle sequence whose MOTA must be 1; one sequence under the profiler;
+ 10. both paths in turns (default, evaluation, evaluation, default), to
+     compare their frames/s inside one process;
 then the kernels line, the nvidia-smi line and the final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
@@ -190,6 +203,139 @@ def phase_k2(rng, dev, cfg):
     return res
 
 
+def _nms_boxes(rng, shape, size=(8.0, 200.0), extent=(320.0, 256.0)):
+    """Random XYXY boxes clipped to the padded image, like RPN proposals."""
+    wh = rng.uniform(*size, shape + (2,))
+    ctr = rng.uniform(0, 1, shape + (2,)) * np.array(extent)
+    lim = np.array(extent * 2)
+    return np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0,
+                   lim).astype(np.float32)
+
+
+def _nms_cases(rng):
+    """(name, boxes (..., K, 4), scores, valid, threshold): inputs that
+    break a wrong exact NMS.  Unsorted; ties, chains, invalid rows, odd K."""
+    def case(name, boxes, scores=None, valid=None, thresh=0.5):
+        shape = boxes.shape[:-1]
+        if scores is None:
+            scores = rng.uniform(size=shape)
+        if valid is None:
+            valid = np.ones(shape, bool)
+        return (name, boxes.astype(np.float32), scores.astype(np.float32),
+                valid, thresh)
+
+    k = 130
+    slide = np.arange(k, dtype=np.float32)[:, None] * np.float32([4, 0, 4, 0])
+    chain = np.float32([0, 0, 10, 10]) + slide    # i overlaps i + 1 only
+    yield case("chain_depth_k", chain, np.linspace(1, 0, k), thresh=0.4)
+    yield case("identical_boxes", np.tile(np.float32([3, 4, 50, 60]), (k, 1)))
+    yield case("tied_scores", _nms_boxes(rng, (k,)),
+               np.round(rng.uniform(size=k), 1))
+    yield case("all_scores_equal", _nms_boxes(rng, (k,)), np.zeros(k))
+    some = rng.uniform(size=(3, 200)) < 0.7
+    yield case("invalid_rows", _nms_boxes(rng, (3, 200)), valid=some,
+               thresh=0.4)
+    yield case("all_invalid", _nms_boxes(rng, (2, 70)),
+               valid=np.zeros((2, 70), bool))
+    yield case("k_equals_1", _nms_boxes(rng, (4, 1)))
+    yield case("k_65", _nms_boxes(rng, (2, 65)), thresh=0.7)
+    # Integer corners: many IoUs are exactly equal to each other and sit on
+    # or next to simple fractions such as 2/5 and 7/10.
+    lo = rng.integers(0, 12, (4, 300, 2))
+    grid = np.concatenate([lo, lo + rng.integers(1, 8, (4, 300, 2))], -1)
+    for thr in (0.4, 0.7):
+        yield case(f"integer_corners_{thr}", grid, thresh=thr,
+                   valid=rng.uniform(size=(4, 300)) < 0.9)
+    yield case("batch_dims", _nms_boxes(rng, (2, 3, 129)), thresh=0.7)
+    # K above what the mask needs of shared memory: the global scratch.
+    yield case("k_1500_global_scratch", _nms_boxes(rng, (2, 1500)),
+               thresh=0.7)
+
+
+def phase_k3(rng, dev, cfg):
+    """K3 against its plain version: the adversarial cases through
+    `nms_mask` (sort, kernel, unsort) against the sort-free fixpoint, then
+    score-sorted problems at the shapes of the evaluation path."""
+    from mot3d_tpu_torch.models.rpn import level_slices
+    from mot3d_tpu_torch.ops import nms as nms_ops
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+
+    cases = 0
+    for name, boxes, scores, valid, thr in _nms_cases(rng):
+        args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, valid)]
+        before = k3.launches.count
+        got = nms_ops.nms_mask(*args, thr, exact=True)
+        want = nms_ops.nms_mask_plain(*args, thr, exact=True)
+        sync()
+        check(k3.launches.count == before + 1, f"K3 {name}: no launch")
+        mism = int((got != want).sum())
+        check(mism == 0, f"K3 {name}: {mism} kept-mask mismatches")
+        cases += 1
+
+    det, t = cfg.detection, cfg.tracking.seq_len
+    rpn_k = [min(det.rpn_pre_nms_topk_test, s1 - s0) for s0, s1 in
+             level_slices(det.pad_height, det.pad_width,
+                          len(det.anchor_ratios))]
+    shapes = [(t, k, det.rpn_nms_thresh) for k in rpn_k]
+    shapes.append((t * det.num_classes, det.rpn_post_nms_topk_test,
+                   det.nms_thresh_test))
+    total = dict(ms=0.0, plain_ms=0.0, with_sort_ms=0.0, ops=0.0, nbytes=0.0,
+                 mismatches=0, kept=0)
+    per_shape = []
+    for q, k, thr in shapes:
+        size = (8.0, 200.0) if thr == det.rpn_nms_thresh else (8.0, 120.0)
+        boxes = torch.from_numpy(_nms_boxes(rng, (q, k), size)).to(dev)
+        scores = torch.from_numpy(
+            np.sort(rng.uniform(size=(q, k)).astype(np.float32))[:, ::-1]
+            .copy()).to(dev)
+        valid = torch.from_numpy(rng.uniform(size=(q, k)) < 0.9).to(dev)
+        got = k3.nms_sorted(boxes, valid, thr)
+        want = k3.nms_sorted_plain(boxes, valid, thr)
+        sync()
+        mism = int((got != want).sum())
+        check(mism == 0, f"K3 {q} x {k}: {mism} kept-mask mismatches")
+        ms = cuda_time_ms(lambda: k3.nms_sorted(boxes, valid, thr), 20)
+        plain_ms = cuda_time_ms(
+            lambda: k3.nms_sorted_plain(boxes, valid, thr), 2, 1)
+        sort_ms = cuda_time_ms(
+            lambda: nms_ops.nms_mask(boxes, scores, valid, thr), 20)
+        # Work this data needs: every pair of valid boxes of a problem once,
+        # ~14 fp32 operations per pair; bytes: 16 + 1 in and 1 out per box.
+        nv = valid.sum(1).double()
+        ops = 14.0 * float((nv * (nv - 1) / 2).sum())
+        nbytes = 18.0 * q * k
+        # The call's two kernels apart, from the profiler's device times.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                k3.nms_sorted(boxes, valid, thr)
+            sync()
+        split = {name: e.self_device_time_total / 1e3 / e.count
+                 for e in prof.key_averages()
+                 for name in ("nms_pairs_kernel", "nms_scan_kernel")
+                 if name in e.key}
+        per_shape.append({"problems": q, "k": k, "thresh": thr, "ms": ms,
+                          "kernel_ms": split,
+                          "plain_ms": plain_ms, "with_sort_ms": sort_ms,
+                          "bound_ms": bound_ms(ops, nbytes)[0],
+                          "kept": int(got.sum())})
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("with_sort_ms", sort_ms), ("ops", ops),
+                         ("nbytes", nbytes), ("kept", int(got.sum()))):
+            total[key] += val
+    bms, by = bound_ms(total["ops"], total["nbytes"])
+    res = dict(max_abs_err=0.0, kept_mismatches=0, ms=total["ms"],
+               plain_ms=total["plain_ms"], with_sort_ms=total["with_sort_ms"],
+               bound_ms=bms, bound_by=by)
+    emit({"phase": "k3", "adversarial_cases": cases, **res,
+          "what": "one sequence's 6 launches (5 RPN levels, 1 class-wise); "
+                  "bound counts valid pairs x 14 operations against 18 "
+                  "bytes per box; the serial rank chain of each problem, "
+                  "not the pair work, is the likely floor",
+          "per_launch": per_shape})
+    return res
+
+
 def _sequence(rng, cfg, cam_x=0.0):
     """One synthetic 25-frame sequence: a room (tilted floor-to-wall depth)
     with four box-shaped objects, a camera that pans slowly, and the
@@ -245,6 +391,26 @@ def _batch(seqs, idx):
     return SequenceBatch(**{k: np.stack([seqs[idx][k]]) for k in seqs[idx]})
 
 
+def _run_staged(stepper, seqs, draws, q):
+    """One sequence stage by stage, with a synchronise after each stage."""
+    batch = _batch(seqs, q)
+    seq = type(batch)(*(x[0] for x in batch))
+    times = {}
+    t0 = time.perf_counter()
+    dets = stepper.detect(seq.images)
+    sync()
+    times["detector_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = stepper.pose(dets, seq, draws[q, 0])
+    sync()
+    times["pose_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probs, obj_ids = stepper.track(frames, seq)
+    sync()
+    times["graph_mpn_s"] = time.perf_counter() - t0
+    return dets, frames, probs, obj_ids, times
+
+
 def phase_main(seed, cfg, dev):
     from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
     from mot3d_tpu_torch.models.mpn import TrackerModel
@@ -268,25 +434,7 @@ def phase_main(seed, cfg, dev):
                                           pose_c.ransac_sample_size))
     draws = torch.from_numpy(draws)
 
-    def run(stepper, q):
-        batch = _batch(seqs, q)
-        seq = type(batch)(*(x[0] for x in batch))
-        times = {}
-        t0 = time.perf_counter()
-        dets = stepper.detect(seq.images)
-        sync()
-        times["detector_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        frames = stepper.pose(dets, seq, draws[q, 0])
-        sync()
-        times["pose_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        probs, obj_ids = stepper.track(frames, seq)
-        sync()
-        times["graph_mpn_s"] = time.perf_counter() - t0
-        return dets, frames, probs, obj_ids, times
-
-    run(step, 0)                                 # warm-up
+    _run_staged(step, seqs, draws, 0)            # warm-up
     # Correctness of the composed step on the warm-up sequence.
     out = step(_batch(seqs, 0), draws=draws[0])
     t, i = trk_c.seq_len, det_c.detections_per_image
@@ -302,7 +450,8 @@ def phase_main(seed, cfg, dev):
     t0 = time.perf_counter()
     results = []
     for q in (1, 2, 3):
-        dets, frames, probs, obj_ids, times = run(step, q)
+        dets, frames, probs, obj_ids, times = _run_staged(step, seqs,
+                                                          draws, q)
         for key in stage:
             stage[key] += times[key]
         results.append((dets, frames, probs))
@@ -329,7 +478,7 @@ def phase_main(seed, cfg, dev):
            "detector_valid": int(sum(int(r[0].valid.sum())
                                      for r in results))}
     emit(res)
-    return det, trk, template, seqs, draws, launches
+    return det, trk, template, seqs, draws, launches, step
 
 
 def phase_pallas(cfg, det, trk, template, seqs, draws, dev):
@@ -378,9 +527,10 @@ def phase_pallas(cfg, det, trk, template, seqs, draws, dev):
     return launches
 
 
-def phase_profile(cfg, det, trk, template, seqs, draws, dev, top=15):
-    """One sequence of the main path under torch.profiler: device time by
-    kernel, and the device's busy share of the sequence's wall time."""
+def phase_profile(cfg, det, trk, template, seqs, draws, dev, top=15,
+                  path="main_path"):
+    """One sequence of a path under torch.profiler: device time by kernel,
+    and the device's busy share of the sequence's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
@@ -398,12 +548,203 @@ def phase_profile(cfg, det, trk, template, seqs, draws, dev, top=15):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy,
+    emit({"phase": "profile", "path": path, "wall_s": wall,
+          "device_busy_s": busy,
           "device_idle_share": 1.0 - busy / wall,
           "kernel_launches": int(sum(e.count for e in events)),
           "top": [{"name": e.key[:90], "count": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
                   for e in events[:top]]})
+
+
+def _randomise_affine(model, seed):
+    """Random, non-trivial scales and biases for every frozen-affine norm
+    layer (a fresh one is the identity)."""
+    from mot3d_tpu_torch.models.norms import AffineChannelNorm
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, AffineChannelNorm):
+                n = m.weight.numel()
+                m.weight.copy_(1.5 + 0.2 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+
+
+def _gt_tracks(tracker, seq):
+    """GT trajectories of one synthetic sequence (class 0, location = box
+    centre)."""
+    valid = seq["gt_valid"]
+    return tracker.gt_trajectories(seq["gt_ids"], valid,
+                                   seq["gt_boxes3d"].mean(-2),
+                                   np.zeros(valid.shape, np.int64))
+
+
+def _host_oracle(tracker, template, seq, cfg):
+    """Host layer alone, at the full template: detections equal to the GT
+    objects and oracle edges must assemble into the GT tracks, MOTA 1."""
+    t, i = cfg.tracking.seq_len, cfg.detection.detections_per_image
+    m = seq["gt_valid"].shape[1]
+    det_valid = np.zeros((t, i), bool)
+    det_valid[:, :m] = seq["gt_valid"]
+    obj_ids = np.full((t, i), -1, np.int64)
+    obj_ids[:, :m] = np.where(seq["gt_valid"], seq["gt_ids"], -1)
+    trans = np.zeros((t, i, 3))
+    trans[:, :m] = seq["gt_boxes3d"].mean(-2)
+    same = (obj_ids[template.src_frame, template.src_slot]
+            == obj_ids[template.dst_frame, template.dst_slot])
+    pred = tracker.assemble(template, same.astype(np.float64), obj_ids,
+                            det_valid, trans, np.zeros((t, i), np.int64))
+    summary = tracker.evaluate(pred, _gt_tracks(tracker, seq))
+    check(summary["num_objects"] > 0 and summary["mota"] == 1.0
+          and summary["idf1"] == 1.0,
+          f"host oracle: MOTA {summary['mota']}, IDF1 {summary['idf1']}")
+    return summary
+
+
+def phase_eval(seed, cfg, trk, template, seqs, draws, dev):
+    """The reference-parity evaluation path: import-mode detector with
+    exact NMS -> pose -> graph -> MPN -> host assembly -> MOTA."""
+    from mot3d_tpu_torch.evaluator.edge_metrics import \
+        edge_precision_recall_f1
+    from mot3d_tpu_torch.importers.flax_params import import_config
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+    from mot3d_tpu_torch.parallel.infer_step import (SequenceOutputs,
+                                                     make_sequence_infer_step,
+                                                     outputs_to_host)
+    from mot3d_tpu_torch.tracking.mot_metrics import (accumulated_idf1,
+                                                      accumulated_mota)
+    from mot3d_tpu_torch.tracking.tracker import Tracker
+
+    det_c = dataclasses.replace(import_config(cfg.detection), fast_nms=False)
+    cfg_e = cfg.replace(detection=det_c)
+    torch.manual_seed(seed + 1)
+    det = MaskRCNN(det_c, device=dev)
+    _randomise_affine(det, seed)
+    step = make_sequence_infer_step(det, trk, template, cfg_e, device=dev)
+    tracker = Tracker(cfg.tracking)
+    t = cfg.tracking.seq_len
+    e = len(template.src_frame)
+
+    def host(frames, probs, obj_ids, q):
+        t0 = time.perf_counter()
+        out = outputs_to_host(SequenceOutputs(
+            probs, obj_ids, frames.valid, frames.translations,
+            frames.classes, frames.objectness))
+        pred = tracker.assemble(template, out.edge_probs[:e], out.obj_ids,
+                                out.valid, out.translations, out.classes)
+        summary, _ = tracker.evaluate(pred, _gt_tracks(tracker, seqs[q]),
+                                      classwise=True)
+        return out, pred, summary, time.perf_counter() - t0
+
+    _run_staged(step, seqs, draws, 0)            # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches.reset()
+    k3.launches.reset()
+    stage = {"detector_s": 0.0, "pose_s": 0.0, "graph_mpn_s": 0.0,
+             "host_assembly_s": 0.0}
+    summaries, n_traj, valid_dets = [], 0, 0
+    t0 = time.perf_counter()
+    for q in (1, 2, 3):
+        dets, frames, probs, obj_ids, times = _run_staged(step, seqs, draws,
+                                                          q)
+        out, pred, summary, times["host_assembly_s"] = host(
+            frames, probs, obj_ids, q)
+        for key in stage:
+            stage[key] += times[key]
+        check(bool(np.isfinite(out.translations).all()),
+              "eval path: non-finite translations")
+        check(bool(np.isfinite(out.edge_probs).all())
+              and bool(((out.edge_probs >= 0) & (out.edge_probs <= 1)).all()),
+              "eval path: edge probabilities outside [0, 1]")
+        check(all(np.isfinite(v) for v in summary.values()),
+              "eval path: non-finite MOTA summary")
+        check(bool(torch.isfinite(dets.boxes).all()
+                   and torch.isfinite(dets.nocs).all()),
+              "eval path: non-finite detections")
+        summaries.append(summary)
+        n_traj += len(pred)
+        valid_dets += int(dets.valid.sum())
+    total = time.perf_counter() - t0
+    launches = {"knn_outlier": k1.launches.count, "nms": k3.launches.count}
+    check(launches["nms"] == 6 * 3,
+          f"K3 launched {launches['nms']} times, expected 18 (5 RPN levels "
+          "+ 1 class-wise per sequence)")
+    check(launches["knn_outlier"] == 2 * 3,
+          f"K1 launched {launches['knn_outlier']} times, expected 6")
+    mota = accumulated_mota(summaries)
+    check(np.isfinite(mota), "eval path: non-finite accumulated MOTA")
+
+    # The composed step on one sequence must equal the staged run.
+    composed = outputs_to_host(step(_batch(seqs, 3), draws=draws[3]))
+    check(np.array_equal(composed.edge_probs[0, :e], out.edge_probs[:e])
+          and np.array_equal(composed.valid[0], out.valid),
+          "eval path: composed step differs from its stages")
+    # Edge metrics of the last sequence against the identity targets.
+    src = out.obj_ids[template.src_frame, template.src_slot]
+    dst = out.obj_ids[template.dst_frame, template.dst_slot]
+    edges = edge_precision_recall_f1(
+        out.edge_probs[:e], (src == dst) & (src >= 0),
+        mask=(out.valid[template.src_frame, template.src_slot]
+              & out.valid[template.dst_frame, template.dst_slot]),
+        threshold=cfg.tracking.edge_threshold)
+
+    # One further sequence with the NOCS bin head.
+    bin_c = dataclasses.replace(det_c, nocs_use_bin_loss=True)
+    torch.manual_seed(seed + 2)
+    det_b = MaskRCNN(bin_c, device=dev)
+    _randomise_affine(det_b, seed)
+    step_b = make_sequence_infer_step(det_b, trk, template,
+                                      cfg.replace(detection=bin_c),
+                                      device=dev)
+    dets_b, frames_b, probs_b, obj_b, _ = _run_staged(step_b, seqs, draws, 1)
+    bins = dets_b.nocs * (bin_c.nocs_num_bins - 1)
+    check(bool(torch.isfinite(frames_b.translations).all())
+          and bool(torch.isfinite(probs_b).all()),
+          "NOCS bin head: non-finite outputs")
+    check(float((bins - bins.round()).abs().max()) < 1e-4
+          and float(dets_b.nocs.min()) >= 0 and float(dets_b.nocs.max()) <= 1,
+          "NOCS bin head: values are not bin centres in [0, 1]")
+    _, _, summary_b, _ = host(frames_b, probs_b, obj_b, 1)
+
+    oracle = _host_oracle(tracker, template, seqs[1], cfg)
+    emit({"phase": "eval_path",
+          "config": "import_config(Config().detection), fast_nms=False",
+          "sequences": 3, "frames": 3 * t, "stage_s": stage,
+          "total_s": total, "sequences_per_s": 3 / total,
+          "frames_per_s": 3 * t / total,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "nms_launches_per_sequence":
+          launches["nms"] // 3, "detector_valid": valid_dets,
+          "trajectories": n_traj, "accumulated_mota": mota,
+          "accumulated_idf1": accumulated_idf1(summaries),
+          "summary_last": summaries[-1], "edge_metrics_last": edges,
+          "nocs_bins": {"distinct_values": int(bins.round().unique().numel()),
+                        "mota": summary_b["mota"]},
+          "host_oracle": {"mota": oracle["mota"],
+                          "num_objects": oracle["num_objects"]}})
+    phase_profile(cfg_e, det, trk, template, seqs, draws, dev,
+                  path="eval_path")
+    return launches, step
+
+
+def phase_turns(steps, seqs, draws, frames):
+    """Both paths in turns inside one process (default, evaluation,
+    evaluation, default), three sequences each through the composed step:
+    the host's clock drifts between phases, so only this compares them."""
+    passes = []
+    for name in ("main_path", "eval_path", "eval_path", "main_path"):
+        sync()
+        t0 = time.perf_counter()
+        for q in (1, 2, 3):
+            steps[name](_batch(seqs, q), draws=draws[q])
+        sync()
+        passes.append({"path": name,
+                       "frames_per_s": 3 * frames
+                       / (time.perf_counter() - t0)})
+    emit({"phase": "turns", "passes": passes})
 
 
 def main() -> int:
@@ -425,10 +766,15 @@ def main() -> int:
     phase_build()
     k1_res = phase_k1(rng, dev)
     k2_res = phase_k2(rng, dev, cfg)
-    det, trk, template, seqs, draws, main_launches = \
+    det, trk, template, seqs, draws, main_launches, main_step = \
         phase_main(args.seed, cfg, dev)
     pallas_launches = phase_pallas(cfg, det, trk, template, seqs, draws, dev)
     phase_profile(cfg, det, trk, template, seqs, draws, dev)
+    k3_res = phase_k3(rng, dev, cfg)
+    eval_launches, eval_step = phase_eval(args.seed, cfg, trk, template, seqs,
+                                          draws, dev)
+    phase_turns({"main_path": main_step, "eval_path": eval_step}, seqs, draws,
+                cfg.tracking.seq_len)
 
     kernels = [
         {"name": "knn_outlier", "route": "cuda",
@@ -446,6 +792,14 @@ def main() -> int:
          "max_abs_err": k2_res["max_abs_err"], "ms": k2_res["ms"],
          "plain_ms": k2_res["plain_ms"], "bound_ms": k2_res["bound_ms"],
          "bound_by": k2_res["bound_by"], "library_ms": None},
+        {"name": "nms", "route": "cuda",
+         "source": "mot3d_tpu_torch/csrc/nms.cu",
+         "replaces": "mot3d_tpu/ops/pallas/nms_kernel.py:81",
+         "launches": eval_launches["nms"],
+         "launches_path": "evaluation path (import mode, fast_nms=False)",
+         "max_abs_err": k3_res["max_abs_err"], "ms": k3_res["ms"],
+         "plain_ms": k3_res["plain_ms"], "bound_ms": k3_res["bound_ms"],
+         "bound_by": k3_res["bound_by"], "library_ms": None},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

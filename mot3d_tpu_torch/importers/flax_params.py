@@ -9,9 +9,13 @@ holds the same tables for detectron2 export):
   - Conv kernel (k..., I, O) -> weight (O, I, k...);
   - ConvTranspose kernel (k..., I, O) -> weight (I, O, k...) with the
     spatial axes flipped: flax does not flip the kernel
-    (`transpose_kernel=False`), torch's transposed convolution does;
+    (`transpose_kernel=False`), torch's transposed convolution does.  A
+    transposed convolution is known by its module name: flax's automatic
+    `ConvTranspose_i`, or the NOCS bin towers' `l1_r` .. `l3_b`;
   - Dense kernel (I, O) -> Linear weight (O, I);
-  - GroupNorm scale -> weight;
+  - GroupNorm and AffineChannelNorm scale -> weight (both of the port's
+    norm layers call their parameters `weight` and `bias`, and every norm
+    layer has the same name in both trees, so the rule needs no mode);
   - BoxHead `fc1_kernel` (7, 7, C, W) -> `fc1.weight` (W, 7 * 7 * C): the
     port flattens the pooled (7, 7, C) block channels-last, as flax
     contracts it, so the rows need no reordering (likewise the voxel
@@ -23,13 +27,17 @@ The inputs are nested dicts of numpy arrays (e.g. `jax.device_get` of
 
 from __future__ import annotations
 
+import dataclasses
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from mot3d_tpu_torch.config import Config
+from mot3d_tpu_torch.config import Config, DetectionConfig
 from mot3d_tpu_torch.models.norms import check_norm
+
+_TRANSPOSED = re.compile(r"ConvTranspose_\d+|l[123]_[rgb]")
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
@@ -55,7 +63,7 @@ def _leaf(path, value) -> tuple:
     if name == "kernel":
         if arr.ndim == 2:
             arr = arr.T
-        elif mods[-1].startswith("ConvTranspose"):
+        elif _TRANSPOSED.fullmatch(mods[-1]):
             arr = _conv_transpose(arr)
         else:
             arr = _conv(arr)
@@ -75,10 +83,22 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (key,), val
 
 
-def _state_dict(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(flax_params: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """Any flax param tree of the JAX package's modules -> the state_dict
+    of the port's module of the same name."""
     tree = flax_params.get("params", flax_params)
     return {key: torch.from_numpy(np.array(arr, order="C", copy=True))
             for key, arr in (_leaf(p, v) for p, v in _flatten(tree))}
+
+
+def import_config(cfg: DetectionConfig) -> DetectionConfig:
+    """The DetectionConfig variant a detector imported from the reference's
+    checkpoint runs under: frozen-affine norms, the torch `view()` voxel
+    reshape, detectron2's anchor offset 0.0 and the stage stride on the
+    bottleneck's 1x1 convolution."""
+    return dataclasses.replace(cfg, norm="affine", voxel_torch_reshape=True,
+                               anchor_offset=0.0, stride_in_1x1=True)
 
 
 def mask_rcnn_state_dict(flax_params: Mapping[str, Any],
@@ -86,7 +106,7 @@ def mask_rcnn_state_dict(flax_params: Mapping[str, Any],
     """`mot3d_tpu.models.mask_rcnn.MaskRCNN` params -> the state_dict of
     `mot3d_tpu_torch.models.mask_rcnn.MaskRCNN(cfg.detection)`."""
     check_norm(cfg.detection.norm)
-    return _state_dict(flax_params)
+    return flax_to_state_dict(flax_params)
 
 
 def tracker_state_dict(flax_params: Mapping[str, Any],
@@ -97,4 +117,4 @@ def tracker_state_dict(flax_params: Mapping[str, Any],
         raise NotImplementedError(
             "graph.time_aware_mp=True is not ported yet: ROADMAP.md Queue 1, "
             "item 'Time-aware message passing'")
-    return _state_dict(flax_params)
+    return flax_to_state_dict(flax_params)

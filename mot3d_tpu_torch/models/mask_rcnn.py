@@ -20,7 +20,8 @@ from torch import nn
 from mot3d_tpu_torch.config import DetectionConfig
 from mot3d_tpu_torch.device import resolve_device
 from mot3d_tpu_torch.models.heads import conv_transpose
-from mot3d_tpu_torch.models.nocs_head import NocsDecoder
+from mot3d_tpu_torch.models.nocs_head import (NocsBinDecoder, NocsDecoder,
+                                              nocs_bins_to_values)
 from mot3d_tpu_torch.models.norms import check_norm
 from mot3d_tpu_torch.models.resnet_fpn import ResNetFPN
 from mot3d_tpu_torch.models.rpn import (RPNHead, decode_deltas,
@@ -85,16 +86,6 @@ class MaskHead(nn.Module):
 
 def _check_supported(c: DetectionConfig) -> None:
     check_norm(c.norm)
-    unported = {
-        "stride_in_1x1": c.stride_in_1x1,
-        "voxel_torch_reshape": c.voxel_torch_reshape,
-        "nocs_use_bin_loss": c.nocs_use_bin_loss,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"detection.{name}=True is not ported yet: ROADMAP.md "
-                "Queue 1, item 'Detector import mode and NOCS bins'")
     if c.compute_dtype != "float32":
         raise NotImplementedError(
             f"detection.compute_dtype={c.compute_dtype!r} is not ported "
@@ -109,16 +100,20 @@ class MaskRCNN(nn.Module):
         _check_supported(cfg)
         self.cfg = c = cfg
         ch = c.fpn_channels
-        self.backbone = ResNetFPN(c.backbone_depth, ch, c.backbone_width)
+        self.backbone = ResNetFPN(c.backbone_depth, ch, c.backbone_width,
+                                  c.norm, c.stride_in_1x1)
         self.rpn_head = RPNHead(ch, len(c.anchor_ratios))
         r = c.box_pooler_resolution
         self.box_head = BoxHead(ch, r, c.num_classes, c.box_head_width)
         self.mask_head = MaskHead(ch, c.num_classes, c.mask_head_width)
         if c.voxel_on:
             self.voxel_head = Pix2VoxDecoder(ch, c.mask_pooler_resolution,
-                                             c.head_width_mult)
+                                             c.head_width_mult, c.norm,
+                                             c.voxel_torch_reshape)
         if c.nocs_on:
-            self.nocs_head = NocsDecoder(ch)
+            self.nocs_head = (NocsBinDecoder(ch, c.nocs_num_bins, c.norm)
+                              if c.nocs_use_bin_loss
+                              else NocsDecoder(ch, c.norm))
         anchors = generate_anchors(c.pad_height, c.pad_width,
                                    tuple(c.anchor_sizes),
                                    tuple(c.anchor_ratios), RPN_STRIDES,
@@ -209,6 +204,8 @@ class MaskRCNN(nn.Module):
             voxels = pooled14.new_zeros((n, 32, 32, 32))
         if c.nocs_on:
             nocs = self.nocs_head(pooled14)
+            if c.nocs_use_bin_loss:
+                nocs = nocs_bins_to_values(nocs, c.nocs_num_bins)
         else:
             nocs = pooled14.new_zeros((n, 28, 28, 3))
         return masks, voxels, nocs

@@ -1,10 +1,13 @@
 """ResNet-50 + FPN backbone (counterpart of `mot3d_tpu/models/resnet_fpn.py`).
 
-GroupNorm throughout (the JAX package's from-scratch default), the stage
-stride on the bottleneck's 3x3 convolution, nearest 2x top-down upsampling
-and P6 = every second pixel of P5.  Layers are NCHW inside; submodule names
-follow the flax parameter tree.  Outputs P2..P6 (strides 4..64), finest
-first, each (B, C, h, w).
+norm="gn" (GroupNorm, the JAX package's from-scratch default) or "affine"
+(frozen per-channel scale + bias, for imported reference weights); the
+stage stride on the bottleneck's 3x3 convolution, or on its first 1x1 with
+`stride_in_1x1` (detectron2's caffe-style R50, which imported weights
+need); nearest 2x top-down upsampling and P6 = every second pixel of P5.
+Layers are NCHW inside; submodule names follow the flax parameter tree (the
+unnamed norm layers are `GroupNorm_i` or `AffineChannelNorm_i` by mode).
+Outputs P2..P6 (strides 4..64), finest first, each (B, C, h, w).
 """
 
 from __future__ import annotations
@@ -15,35 +18,39 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mot3d_tpu_torch.models.norms import group_norm
+from mot3d_tpu_torch.models.norms import make_norm, norm_name
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, in_ch: int, channels: int, stride: int = 1):
+    def __init__(self, in_ch: int, channels: int, stride: int = 1,
+                 norm: str = "gn", stride_in_1x1: bool = False):
         super().__init__()
         out_ch = channels * 4
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.has_proj = stride != 1 or in_ch != out_ch
         if self.has_proj:
             self.proj = nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False)
-            self.proj_gn = group_norm(32, out_ch)
-        self.Conv_0 = nn.Conv2d(in_ch, channels, 1, bias=False)
-        self.GroupNorm_0 = group_norm(32, channels)
-        self.Conv_1 = nn.Conv2d(channels, channels, 3, stride=stride,
+            self.proj_gn = make_norm(norm, 32, out_ch)
+        self.Conv_0 = nn.Conv2d(in_ch, channels, 1, stride=s1, bias=False)
+        self.Conv_1 = nn.Conv2d(channels, channels, 3, stride=s3,
                                 padding=1, bias=False)
-        self.GroupNorm_1 = group_norm(32, channels)
         self.Conv_2 = nn.Conv2d(channels, out_ch, 1, bias=False)
-        self.GroupNorm_2 = group_norm(32, out_ch)
+        self.norms = [norm_name(norm, i) for i in range(3)]
+        for name, ch in zip(self.norms, (channels, channels, out_ch)):
+            self.add_module(name, make_norm(norm, 32, ch))
 
     def forward(self, x):
+        n0, n1, n2 = (getattr(self, name) for name in self.norms)
         shortcut = self.proj_gn(self.proj(x)) if self.has_proj else x
-        y = F.relu(self.GroupNorm_0(self.Conv_0(x)))
-        y = F.relu(self.GroupNorm_1(self.Conv_1(y)))
-        y = self.GroupNorm_2(self.Conv_2(y))
+        y = F.relu(n0(self.Conv_0(x)))
+        y = F.relu(n1(self.Conv_1(y)))
+        y = n2(self.Conv_2(y))
         return F.relu(y + shortcut)
 
 
 class ResNet(nn.Module):
-    def __init__(self, depth: int = 50, width_mult: float = 1.0):
+    def __init__(self, depth: int = 50, width_mult: float = 1.0,
+                 norm: str = "gn", stride_in_1x1: bool = False):
         super().__init__()
         blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]
 
@@ -51,7 +58,7 @@ class ResNet(nn.Module):
             return max(32, int(c * width_mult))
 
         self.stem = nn.Conv2d(3, w(64), 7, stride=2, padding=3, bias=False)
-        self.stem_gn = group_norm(32, w(64))
+        self.stem_gn = make_norm(norm, 32, w(64))
         self.stages: List[List[str]] = []
         in_ch = w(64)
         for stage, (n_blocks, ch) in enumerate(zip(blocks, (64, 128, 256,
@@ -60,7 +67,8 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 name = f"res{stage + 2}_{b}"
-                self.add_module(name, Bottleneck(in_ch, w(ch), stride))
+                self.add_module(name, Bottleneck(in_ch, w(ch), stride, norm,
+                                                  stride_in_1x1))
                 in_ch = w(ch) * 4
                 names.append(name)
             self.stages.append(names)
@@ -111,9 +119,10 @@ class FPN(nn.Module):
 
 class ResNetFPN(nn.Module):
     def __init__(self, depth: int = 50, out_channels: int = 256,
-                 width_mult: float = 1.0):
+                 width_mult: float = 1.0, norm: str = "gn",
+                 stride_in_1x1: bool = False):
         super().__init__()
-        self.resnet = ResNet(depth, width_mult)
+        self.resnet = ResNet(depth, width_mult, norm, stride_in_1x1)
         self.fpn = FPN(self.resnet.out_channels, out_channels)
 
     def forward(self, images):

@@ -1,10 +1,13 @@
 """Voxel reconstruction ROI head (counterpart of
-`mot3d_tpu/models/voxel_head.py:Pix2VoxDecoder`, gn mode).
+`mot3d_tpu/models/voxel_head.py:Pix2VoxDecoder`).
 
-Pooled ROI features (N, 14, 14, C) are reshaped channels-last into a
-(4, 4, 4, 196 C / 64) volume — the flax model's NHWC reshape — then five
-transposed 3D convolutions (GroupNorm + ReLU after the first four) decode
-(N, 32, 32, 32) occupancy logits.
+Pooled ROI features (N, 14, 14, C) become a 4 x 4 x 4 volume of
+196 C / 64 channels, then five transposed 3D convolutions (norm + ReLU
+after the first four) decode (N, 32, 32, 32) occupancy logits.  The
+default reshape is the flax model's channels-last one; `torch_reshape=True`
+(with norm="affine", for imported reference weights) groups the
+channel-major flat index instead, as the reference's `view()` of an
+(N, C, 14, 14) tensor into (N, 196 C / 64, 4, 4, 4) does.
 """
 
 from __future__ import annotations
@@ -13,13 +16,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from mot3d_tpu_torch.models.heads import conv_transpose
-from mot3d_tpu_torch.models.norms import group_norm
+from mot3d_tpu_torch.models.norms import make_norm, norm_name
 
 
 class Pix2VoxDecoder(nn.Module):
     def __init__(self, in_channels: int, pooled: int = 14,
-                 width_mult: float = 1.0):
+                 width_mult: float = 1.0, norm: str = "gn",
+                 torch_reshape: bool = False):
         super().__init__()
+        self.torch_reshape = torch_reshape
 
         def w(c):
             return max(8, int(c * width_mult))
@@ -31,16 +36,19 @@ class Pix2VoxDecoder(nn.Module):
         for i in range(5):
             self.add_module(f"ConvTranspose_{i}", conv_transpose(
                 3, chans[i], chans[i + 1], kernels[i], strides[i]))
-            if i < 4:
-                self.add_module(f"GroupNorm_{i}",
-                                group_norm(min(8, chans[i + 1]),
-                                           chans[i + 1]))
+        self.norms = [norm_name(norm, i) for i in range(4)]
+        for i, name in enumerate(self.norms):
+            self.add_module(name, make_norm(norm, min(8, chans[i + 1]),
+                                            chans[i + 1]))
 
     def forward(self, x):
         """(N, 14, 14, C) -> (N, 32, 32, 32) logits."""
         n = x.shape[0]
-        vol = x.reshape(n, 4, 4, 4, -1).permute(0, 4, 1, 2, 3)
-        for i in range(4):
+        if self.torch_reshape:
+            vol = x.permute(0, 3, 1, 2).reshape(n, -1, 4, 4, 4)
+        else:
+            vol = x.reshape(n, 4, 4, 4, -1).permute(0, 4, 1, 2, 3)
+        for i, name in enumerate(self.norms):
             vol = getattr(self, f"ConvTranspose_{i}")(vol)
-            vol = F.relu(getattr(self, f"GroupNorm_{i}")(vol))
+            vol = F.relu(getattr(self, name)(vol))
         return self.ConvTranspose_4(vol)[:, 0]

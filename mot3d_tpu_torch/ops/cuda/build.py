@@ -23,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("knn_outlier.cu", "pose_extract.cu")
+SOURCES = ("knn_outlier.cu", "pose_extract.cu", "nms.cu")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libmot3d_kernels.so"
@@ -123,6 +123,10 @@ def library() -> ctypes.CDLL:
     lib.mot3d_pose_extract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                        i, f, p]
     lib.mot3d_pose_extract.restype = i
+    lib.mot3d_nms_scratch_words.argtypes = [i]
+    lib.mot3d_nms_scratch_words.restype = ctypes.c_longlong
+    lib.mot3d_nms_sorted.argtypes = [p, p, p, p, i, i, f, p]
+    lib.mot3d_nms_sorted.restype = i
     return lib
 
 

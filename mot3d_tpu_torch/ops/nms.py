@@ -11,7 +11,10 @@ all classes) of a batch are one pass.
 - exact NMS: ``keep[j] = valid[j] and no higher-ranked KEPT box suppresses
   j`` is the unique fixpoint of ``keep <- valid & ~any(keep & S)``; it is
   iterated from ``keep = valid`` until it stops changing (at most K + 1
-  steps, in practice the longest suppression chain).
+  steps, in practice the longest suppression chain).  That iteration
+  (`nms_mask_plain`) serves CPU tensors; a CUDA tensor goes through the K3
+  kernel (`ops/cuda/nms.py:exact_nms_mask`: sort, scan, unsort), which keeps
+  the same set.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from mot3d_tpu_torch.geometry.iou3d import box2d_iou_matrix
+from mot3d_tpu_torch.ops.cuda.nms import exact_nms_mask, fixpoint_keep
 
 
 def _suppression_matrix(boxes, scores, valid, iou_threshold: float):
@@ -35,21 +39,26 @@ def _suppression_matrix(boxes, scores, valid, iou_threshold: float):
             & valid[..., None, :])
 
 
+def nms_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                   valid: torch.Tensor, iou_threshold: float,
+                   exact: bool = True) -> torch.Tensor:
+    """`nms_mask` as plain tensor code on the (K, K) suppression matrix, on
+    any device: the plain version the K3 kernel is held against."""
+    suppress = _suppression_matrix(boxes, scores, valid, iou_threshold)
+    if not exact:
+        return valid & ~suppress.any(-2)
+    return fixpoint_keep(valid, suppress)
+
+
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
              iou_threshold: float, exact: bool = True) -> torch.Tensor:
     """Keep mask (..., K) for XYXY boxes (..., K, 4); invalid boxes are
     dropped.  exact=True keeps the same set as torchvision/detectron2 NMS
-    on the valid subset; exact=False is fast NMS."""
-    suppress = _suppression_matrix(boxes, scores, valid, iou_threshold)
-    if not exact:
-        return valid & ~suppress.any(-2)
-    keep = valid
-    for _ in range(valid.shape[-1] + 1):
-        new = valid & ~(keep[..., :, None] & suppress).any(-2)
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return keep
+    on the valid subset (the K3 kernel for a tensor that is not on the CPU);
+    exact=False is fast NMS."""
+    if exact and boxes.device.type != "cpu":
+        return exact_nms_mask(boxes, scores, valid, iou_threshold)
+    return nms_mask_plain(boxes, scores, valid, iou_threshold, exact)
 
 
 def classwise_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,

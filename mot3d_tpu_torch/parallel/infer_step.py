@@ -4,10 +4,13 @@
 detect -> pose -> graph -> MPN for each padded 25-frame sequence of a
 batch: `MaskRCNN.predict` over the T frames, `postprocess_frames` over all
 T * I detection slots at once (so the K1 outlier kernel runs twice and the
-K2 extraction kernel once per sequence, each as one large launch),
+K2 extraction kernel once per sequence, each as one large launch; with
+`detection.fast_nms=False` the K3 exact-NMS kernel runs six times, once per
+RPN level over all frames and once for the class-wise test NMS),
 `build_graph`, and `TrackerModel`'s edge probabilities.  The B sequences of
 a batch run one after another.  Host-side trajectory assembly and MOTA
-consume the outputs (not ported yet).
+(`tracking/tracker.py`, `tracking/mot_metrics.py`) consume the outputs
+after `outputs_to_host` has brought them over in one copy.
 
 Reference anchors: the eval path of `Detection/train_combined.py:128-433`
 and tracking inference (`Tracking/inference.py:19-21`).
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mot3d_tpu_torch.config import Config
@@ -54,6 +58,18 @@ class SequenceOutputs(NamedTuple):
     translations: torch.Tensor  # (B, T, I, 3)
     classes: torch.Tensor       # (B, T, I)
     scores: torch.Tensor        # (B, T, I) detector objectness
+
+
+def outputs_to_host(outputs: SequenceOutputs) -> SequenceOutputs:
+    """The same fields as numpy arrays, through one device-to-host copy: the
+    fields are packed into one float64 buffer on the device (exact for the
+    floats, flags and small integers they hold) and split on the host."""
+    sizes = [x.numel() for x in outputs]
+    flat = torch.cat([x.reshape(-1).double() for x in outputs]).cpu().numpy()
+    return SequenceOutputs(*(
+        part.reshape(tuple(x.shape)).astype(
+            torch.empty(0, dtype=x.dtype).numpy().dtype)
+        for part, x in zip(np.split(flat, np.cumsum(sizes)[:-1]), outputs)))
 
 
 class SequenceInferStep:

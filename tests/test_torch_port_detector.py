@@ -11,8 +11,14 @@ near-tied proposal rankings.  The JAX model still rounds its backbone,
 RPN and head outputs to float32, so the outputs agree to ~1e-6.
 Tolerances: continuous outputs rtol 1e-4 / atol 1e-4; discrete outputs
 (proposal order, classes, validity) exact.
+
+The import-mode cases (`import_config`: affine norms, stride on the 1x1,
+torch voxel reshape, anchor offset 0; exact NMS; NOCS bins) carry random,
+non-trivial affine scales and biases across, so a norm applied on the wrong
+side of the ReLU or a wrongly laid-out tower kernel shows.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -22,33 +28,58 @@ import pytest
 import torch
 
 from __graft_entry__ import _tiny_config
+from mot3d_tpu.importers.torch_ckpt import import_config as import_config_j
+from mot3d_tpu.models import nocs_head as nocs_j
+from mot3d_tpu.models import norms as norms_j
+from mot3d_tpu.models import resnet_fpn as resnet_j
 from mot3d_tpu.models import rpn as rpn_j
+from mot3d_tpu.models import voxel_head as voxel_j
 from mot3d_tpu.models.mask_rcnn import MaskRCNN as MaskRCNNJ
 from mot3d_tpu.models.mask_rcnn import RPN_STRIDES
 from mot3d_tpu.ops import nms as nms_j
 from mot3d_tpu.ops.roi_align import multilevel_roi_align_packed as roi_j
-from mot3d_tpu_torch.importers.flax_params import mask_rcnn_state_dict
+from mot3d_tpu_torch.importers.flax_params import (flax_to_state_dict,
+                                                   import_config,
+                                                   mask_rcnn_state_dict)
+from mot3d_tpu_torch.models import nocs_head as nocs_t
+from mot3d_tpu_torch.models import norms as norms_t
+from mot3d_tpu_torch.models import resnet_fpn as resnet_t
 from mot3d_tpu_torch.models import rpn as rpn_t
+from mot3d_tpu_torch.models import voxel_head as voxel_t
 from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN as MaskRCNNT
 from mot3d_tpu_torch.models.mask_rcnn import STRIDES
 from mot3d_tpu_torch.ops import nms as nms_t
 from mot3d_tpu_torch.ops.roi_align import multilevel_roi_align_packed as roi_t
-from torch_port_helpers import port_config, random_params, to_torch
+from torch_port_helpers import (port_config, random_params,
+                                randomise_affine, tame_affine_backbone,
+                                to_torch)
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@functools.lru_cache(maxsize=1)
-def _models():
+def _import_mode(cfg_j, bins):
+    """The tiny config as an imported reference detector is evaluated:
+    `import_config` and exact NMS, with or without the NOCS bin head."""
+    return cfg_j.replace(detection=dataclasses.replace(
+        import_config_j(cfg_j.detection), fast_nms=False,
+        nocs_use_bin_loss=bins))
+
+
+@functools.lru_cache(maxsize=3)
+def _models(mode="gn"):
     cfg_j = _tiny_config()
+    if mode != "gn":
+        cfg_j = _import_mode(cfg_j, bins=mode == "import_bins")
     det_j = MaskRCNNJ(cfg_j.detection)
     rng = np.random.default_rng(0)
     h, w = cfg_j.detection.pad_height, cfg_j.detection.pad_width
     images = rng.uniform(0, 255, (2, h, w, 3)).astype(np.float32)
     params = random_params(det_j, jnp.asarray(images),
                            method=MaskRCNNJ.predict)
+    if mode != "gn":
+        tame_affine_backbone(randomise_affine(params["params"], rng))
     cfg_t = port_config(cfg_j)
     det_t = MaskRCNNT(cfg_t.detection, device="cpu").eval()
     det_t.load_state_dict(mask_rcnn_state_dict(params, cfg_t), strict=True)
@@ -151,8 +182,101 @@ def test_roi_align_packed():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_predict():
-    cfg_j, det_j, params, det_t, images = _models()
+def _sub_module(module_j, module_t, x, seed=0):
+    """Random params for a flax sub-module (affine parts non-trivial),
+    carried into its port counterpart; both in float64.  x is NHWC."""
+    params = random_params(module_j, jnp.asarray(x, jnp.float32), seed=seed)
+    randomise_affine(params["params"], np.random.default_rng(seed + 1))
+    module_t.load_state_dict(flax_to_state_dict(params), strict=True)
+    want = module_j.apply(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float64), params), jnp.asarray(x))
+    return np.asarray(want), module_t.double().eval()
+
+
+def _nchw(x):
+    return to_torch(x).permute(0, 3, 1, 2)
+
+
+def test_affine_channel_norm():
+    x = np.random.default_rng(1).normal(size=(2, 5, 6, 8))
+    want, mod = _sub_module(norms_j.AffineChannelNorm(),
+                            norms_t.AffineChannelNorm(8), x)
+    with torch.no_grad():
+        got = mod(_nchw(x)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    assert isinstance(norms_t.make_norm("affine", 32, 8),
+                      norms_t.AffineChannelNorm)
+    with pytest.raises(ValueError, match="unknown norm"):
+        norms_t.make_norm("batch", 32, 8)
+
+
+@pytest.mark.parametrize("norm,stride_in_1x1", [("affine", True),
+                                                ("affine", False),
+                                                ("gn", True)])
+def test_bottleneck_stride_placement(norm, stride_in_1x1):
+    """Odd input size, so the stride-2 1x1 and the stride-2 3x3 sample
+    different pixels."""
+    x = np.random.default_rng(2).normal(size=(2, 9, 11, 64))
+    want, mod = _sub_module(
+        resnet_j.Bottleneck(32, 2, norm=norm, stride_in_1x1=stride_in_1x1),
+        resnet_t.Bottleneck(64, 32, 2, norm, stride_in_1x1), x)
+    with torch.no_grad():
+        got = mod(_nchw(x)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("norm,torch_reshape", [("affine", True),
+                                                ("gn", True),
+                                                ("affine", False)])
+def test_voxel_decoder_import_mode(norm, torch_reshape):
+    x = np.random.default_rng(3).normal(size=(2, 14, 14, 32))
+    want, mod = _sub_module(
+        voxel_j.Pix2VoxDecoder(0.125, norm=norm, torch_reshape=torch_reshape),
+        voxel_t.Pix2VoxDecoder(32, 14, 0.125, norm, torch_reshape), x)
+    with torch.no_grad():
+        got = mod(to_torch(x))
+    assert got.shape == (2, 32, 32, 32)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_nocs_decoder_affine_after_relu():
+    x = np.random.default_rng(4).normal(size=(2, 14, 14, 32))
+    want, mod = _sub_module(nocs_j.NocsDecoder(norm="affine"),
+                            nocs_t.NocsDecoder(32, "affine"), x)
+    with torch.no_grad():
+        got = mod(to_torch(x))
+    assert got.shape == (2, 28, 28, 3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("norm", ["affine", "gn"])
+def test_nocs_bin_decoder_and_bins_to_values(norm):
+    x = np.random.default_rng(5).normal(size=(2, 14, 14, 32))
+    want, mod = _sub_module(nocs_j.NocsBinDecoder(8, norm=norm),
+                            nocs_t.NocsBinDecoder(32, 8, norm), x)
+    with torch.no_grad():
+        got = mod(to_torch(x))
+    assert got.shape == (2, 28, 28, 3, 8)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # Values from the same logits (ties included: the first bin wins).
+    logits = np.round(want, 1)
+    assert (np.sort(logits, -1)[..., -1] == np.sort(logits, -1)[..., -2]).any()
+    np.testing.assert_allclose(
+        nocs_t.nocs_bins_to_values(to_torch(logits), 8).numpy(),
+        np.asarray(nocs_j.nocs_bins_to_values(jnp.asarray(logits), 8)),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_import_config_is_a_faithful_copy():
+    cfg = _tiny_config()
+    assert dataclasses.asdict(import_config(port_config(cfg).detection)) == \
+        dataclasses.asdict(import_config_j(cfg.detection))
+
+
+@pytest.mark.parametrize("mode", ["gn", "import", "import_bins"])
+def test_predict(mode):
+    cfg_j, det_j, params, det_t, images = _models(mode)
+    assert cfg_j.detection.fast_nms == (mode == "gn")
     want = jax.jit(lambda p, x: det_j.apply(p, x, method=MaskRCNNJ.predict))(
         params, jnp.asarray(images))
     got = det_t.predict(to_torch(images))
@@ -169,11 +293,8 @@ def test_predict():
 
 def test_unported_detector_options_raise():
     cfg = port_config(_tiny_config()).detection
-    import dataclasses
-    for field in ("stride_in_1x1", "voxel_torch_reshape",
-                  "nocs_use_bin_loss"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MaskRCNNT(dataclasses.replace(cfg, **{field: True}),
-                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskRCNNT(dataclasses.replace(cfg, norm="affine"), device="cpu")
+        MaskRCNNT(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                  device="cpu")
+    with pytest.raises(ValueError, match="unknown norm"):
+        MaskRCNNT(dataclasses.replace(cfg, norm="batch"), device="cpu")

@@ -8,7 +8,7 @@ and skips without one.  On a machine with a card:
 The kernels are built with -fmad=false and evaluate the plain versions'
 expressions in the same order, so the comparisons are exact; the stated
 tolerances (1e-5 mean-kNN, 2e-5 feats) are the contract of the JAX package's
-kernel tests.
+kernel tests.  Exact NMS has no tolerance: kept masks are equal.
 """
 
 import numpy as np
@@ -69,3 +69,41 @@ def test_pose_extract_kernel_matches_plain():
     assert k2.launches.count == before + 1
     assert torch.equal(valid, valid_w)
     assert float((feats - feats_w).abs().max()) <= 2e-5
+
+
+def test_nms_kernel_matches_plain_on_every_case():
+    """`nms_mask(exact=True)` on the card (sort, K3, unsort) against the
+    sort-free fixpoint on the card, on the CPU test's cases."""
+    from mot3d_tpu_torch.ops import nms as nms_ops
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+    from torch_port_helpers import nms_cases
+
+    dev = _cuda()
+    for name, (boxes, scores, valid, thresh) in nms_cases().items():
+        args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, valid)]
+        before = k3.launches.count
+        got = nms_ops.nms_mask(*args, thresh, exact=True)
+        want = nms_ops.nms_mask_plain(*args, thresh, exact=True)
+        assert k3.launches.count == before + 1, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("q,k,thresh", [(25, 1000, 0.7), (175, 500, 0.4),
+                                        (3, 1500, 0.7)])
+def test_nms_sorted_kernel_matches_plain_at_path_shapes(q, k, thresh):
+    """Score-sorted problems at the evaluation path's shapes, and one whose
+    mask needs the global scratch buffer."""
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    ctr = rng.uniform(0, 1, (q, k, 2)) * [320, 256]
+    wh = rng.uniform(8, 200, (q, k, 2))
+    boxes = np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0,
+                    [320, 256, 320, 256]).astype(np.float32)
+    boxes = torch.from_numpy(boxes).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=(q, k)) < 0.9).to(dev)
+    got = k3.nms_sorted(boxes, valid, thresh)
+    assert torch.equal(got, k3.nms_sorted_plain(boxes, valid, thresh))
+    with pytest.raises(TypeError):
+        k3.nms_sorted(boxes.double(), valid, thresh)

@@ -22,10 +22,30 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "mot3d_tpu"}
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, mot3d_tpu_torch, mot3d_tpu_torch.parallel.infer_step, "
-            "mot3d_tpu_torch.importers.flax_params; "
+            "mot3d_tpu_torch.importers.flax_params, "
+            "mot3d_tpu_torch.tracking.tracker, "
+            "mot3d_tpu_torch.evaluator.edge_metrics; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mot3d_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_tracker_imports_without_pandas():
+    """pandas serves `traj_table` only: with it blocked, the host tracker
+    and the package still import, assemble and score."""
+    code = ("import sys; sys.modules['pandas'] = None; "
+            "import numpy as np, mot3d_tpu_torch; "
+            "from mot3d_tpu_torch.tracking.tracker import Tracker; "
+            "from mot3d_tpu_torch.config import TrackingConfig; "
+            "t = Tracker(TrackingConfig()); "
+            "gt = t.gt_trajectories(np.zeros((2, 1), int), "
+            "np.ones((2, 1), bool), np.zeros((2, 1, 3)), "
+            "np.zeros((2, 1), int)); "
+            "assert t.evaluate(gt, gt)['mota'] == 1.0; "
+            "assert 'pandas' not in [m for m, v in sys.modules.items() if v]")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

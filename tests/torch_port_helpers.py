@@ -61,5 +61,83 @@ def random_params(model, *args, seed=0, **kwargs):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def randomise_affine(tree, rng):
+    """Non-trivial scale and bias for every frozen-affine norm of a flax
+    param tree (the leaves of a {"scale", "bias"} module), in place."""
+    for val in tree.values():
+        if not isinstance(val, dict):
+            continue
+        if set(val) == {"scale", "bias"}:
+            shape = val["scale"].shape
+            val["scale"] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+            val["bias"] = rng.normal(0, 0.3, shape).astype(np.float32)
+        else:
+            randomise_affine(val, rng)
+    return tree
+
+
+def tame_affine_backbone(params):
+    """Scale down the stem's affine norm and each bottleneck's last one, in
+    place: frozen affines do not renormalise, so unit-variance random
+    weights would otherwise blow 0..255 pixels up through the residual
+    stages until every decoded box is clipped to the image border."""
+    resnet = params["backbone"]["resnet"]
+    resnet["stem_gn"]["scale"] = resnet["stem_gn"]["scale"] * 0.02
+    for name, block in resnet.items():
+        if name.startswith("res"):
+            last = block["AffineChannelNorm_2"]
+            last["scale"] = last["scale"] * 0.5
+    return params
+
+
 def to_torch(a):
     return torch.from_numpy(np.array(a))
+
+
+def _boxes(rng, shape, extent=100.0, size=(5.0, 40.0)):
+    xy = rng.uniform(0, extent, shape + (2,))
+    return np.concatenate([xy, xy + rng.uniform(*size, shape + (2,))],
+                          -1).astype(np.float32)
+
+
+def nms_cases():
+    """name -> (boxes (..., K, 4), scores, valid, threshold): the inputs an
+    exact NMS must get right (ties, chains, invalid rows, odd K, IoUs next
+    to the threshold, leading batch dimensions)."""
+    rng = np.random.default_rng(11)
+    cases = {}
+
+    def add(name, boxes, scores=None, valid=None, thresh=0.5):
+        shape = boxes.shape[:-1]
+        if scores is None:
+            scores = rng.uniform(size=shape)
+        if valid is None:
+            valid = np.ones(shape, bool)
+        cases[name] = (boxes.astype(np.float32), scores.astype(np.float32),
+                       valid, thresh)
+
+    for thr in (0.4, 0.7):
+        add(f"random_{thr}", _boxes(rng, (64,)), thresh=thr)
+    one = np.ones(64, bool)
+    one[5] = False
+    add("one_invalid", _boxes(rng, (64,)), valid=one)
+    add("several_invalid", _boxes(rng, (64,)),
+        valid=rng.uniform(size=64) < 0.6, thresh=0.4)
+    add("tied_scores", _boxes(rng, (64,)), np.round(rng.uniform(size=64), 1))
+    add("all_scores_equal", _boxes(rng, (40,)), np.zeros(40), thresh=0.4)
+    add("identical_boxes", np.tile(np.float32([3, 4, 50, 60]), (70, 1)))
+    k = 70
+    slide = np.arange(k, dtype=np.float32)[:, None] * np.float32([4, 0, 4, 0])
+    add("chain_depth_k", np.float32([0, 0, 10, 10]) + slide,
+        np.linspace(1, 0, k), thresh=0.4)
+    add("k_100", _boxes(rng, (100,)), thresh=0.7)
+    add("k_129", _boxes(rng, (129,)), thresh=0.4)
+    add("k_1", _boxes(rng, (1,)))
+    add("all_invalid", _boxes(rng, (33,)), valid=np.zeros(33, bool))
+    lo = rng.integers(0, 12, (90, 2))
+    grid = np.concatenate([lo, lo + rng.integers(1, 8, (90, 2))], -1)
+    for thr in (0.4, 0.7):
+        add(f"integer_corners_{thr}", grid, thresh=thr)
+    add("batch_dims", _boxes(rng, (2, 3, 37)),
+        valid=rng.uniform(size=(2, 3, 37)) < 0.8, thresh=0.7)
+    return cases

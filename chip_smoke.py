@@ -7,10 +7,12 @@ Phases, one JSON line each; any failure exits non-zero:
      power limit;
   2. build: the CUDA kernels of mot3d_tpu_torch/csrc into build/kernels
      (nvcc time and the -Xptxas -v lines);
-  3. K1 (kNN outlier statistic) against its plain version at the main
-     path's shapes, plus full mode and degenerate detections, with times;
+  3. K1 (kNN outlier statistic) against its plain version on every row at
+     the main path's shapes and in full mode, with call times and the
+     profiler's device times; then edge cases (k = 1, 7, 12, 32, C = 1 and
+     2048, exact ties, detections with no valid points or candidates);
   4. K2 (pose point extraction) against its plain version at the main
-     path's shapes, with times;
+     path's shapes, with call and device times, and at odd P with G = 33;
   5. the main path at full width: default Config() (R50-FPN with GN,
      256 x 320 input, 25-frame sequences, 16 detections per frame), random
      weights from --seed, one warm-up and three timed synthetic sequences
@@ -36,6 +38,8 @@ Phases, one JSON line each; any failure exits non-zero:
 then the kernels line, the nvidia-smi line and the final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
+With --kernels-only it stops after phase 4: copied into another checkout
+and run from there, it times that checkout's K1 and K2 the same way.
 """
 
 from __future__ import annotations
@@ -74,6 +78,21 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     sync()
     return start.elapsed_time(stop) / iters
+
+
+def kernel_device_ms(fn, name: str, iters: int = 10) -> dict:
+    """Per-launch device time (ms) of each CUDA kernel whose name contains
+    `name`, from torch.profiler over `iters` calls of fn (after one
+    warm-up call): {kernel name: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages() if name in e.key}
 
 
 def bound_ms(ops: float, nbytes: float):
@@ -119,11 +138,69 @@ def _clouds(rng, b, n, dev):
     return (torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev))
 
 
-def phase_k1(rng, dev, b=400):
-    from mot3d_tpu_torch.geometry.outlier import (_threshold_keep,
-                                                  candidate_columns)
-    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+def _knn_cases(rng, dev):
+    """(name, points, valid, cols, k): the compiled top-k widths that the
+    path's shapes (k = 5, 20) do not reach (k = 1, 7, 12, 32), C = 1 and
+    C = 2048, duplicated points whose distances tie exactly, detections
+    whose points or candidates are all invalid or that have fewer than k
+    valid candidates."""
+    def subset(n, c):
+        return (np.arange(c) * n + n // 2) // c
+
+    def case(name, n, cols, k, b=8, pts=None, valid=None):
+        p, v = _clouds(rng, b, n, dev)
+        if pts is not None:
+            p = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        if valid is not None:
+            v = torch.from_numpy(valid).to(dev)
+        return (name, p, v, torch.tensor(cols, dtype=torch.int32,
+                                         device=dev), k)
+
+    yield case("k1_subset", 1024, subset(1024, 256), 1)
+    yield case("k7_full", 512, np.arange(512), 7)
+    yield case("k12_full", 512, np.arange(512), 12)
+    yield case("k32_full", 1024, np.arange(1024), 32)
+    yield case("c1", 256, [10], 1)
+    yield case("c2048", 2048, np.arange(2048), 20)
+    # Multiples of 1/16 below 3: d2 is exact, duplicates sit at exactly 0
+    # and equal distances tie exactly.
+    dup = np.repeat(rng.integers(-48, 48, (8, 256, 3)) / 16.0, 4, axis=1)
+    yield case("duplicates", 1024, np.arange(1024), 5, pts=dup)
+    yield case("duplicates_subset", 1024, subset(1024, 256), 5, pts=dup)
+    cols = subset(1024, 256)
+    deg = np.ones((4, 1024), bool)
+    deg[0] = False                       # every point invalid
+    deg[1, cols] = False                 # every candidate invalid
+    deg[2, cols[3:]] = False             # 3 valid candidates, k = 5
+    yield case("degenerate_detections", 1024, cols, 5, b=4, valid=deg)
+
+
+def _knn_compare(k1, pts, valid, cols, k, what):
+    """K1 against its plain version on every row (invalid rows are 0 in
+    both) and the kept masks after the threshold; returns the error."""
     from mot3d_tpu_torch.config import PoseConfig
+    from mot3d_tpu_torch.geometry.outlier import _threshold_keep
+
+    p = PoseConfig()
+    got = k1.knn_mean_dists(pts, valid, cols, k)
+    want = k1.knn_mean_dists_plain(pts, valid, cols, k)
+    sync()
+    err = float((got - want).abs().max())
+    keep_g = _threshold_keep(got, valid, p.outlier_std_ratio,
+                             p.outlier_min_points)
+    keep_w = _threshold_keep(want, valid, p.outlier_std_ratio,
+                             p.outlier_min_points)
+    mism = int((keep_g != keep_w).sum())
+    check(err <= 1e-5, f"K1 {what}: mean-kNN error {err}")
+    check(mism == 0, f"K1 {what}: {mism} kept-mask mismatches")
+    check(bool(torch.isfinite(got).all()), f"K1 {what}: non-finite")
+    return err, mism
+
+
+def phase_k1(rng, dev, b=400):
+    from mot3d_tpu_torch.config import PoseConfig
+    from mot3d_tpu_torch.geometry.outlier import candidate_columns
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
 
     p = PoseConfig()
     n = p.max_points
@@ -135,19 +212,11 @@ def phase_k1(rng, dev, b=400):
         valid[1] = False                        # fewer than k valid
         valid[1, cols[: k - 2].long()] = True
         valid[1, :5] = True
-        got = k1.knn_mean_dists(pts, valid, cols, k)
-        want = k1.knn_mean_dists_plain(pts, valid, cols, k)
-        sync()
-        err = float((got - want).abs()[valid].max())
-        keep_g = _threshold_keep(got, valid, p.outlier_std_ratio,
-                                 p.outlier_min_points)
-        keep_w = _threshold_keep(want, valid, p.outlier_std_ratio,
-                                 p.outlier_min_points)
-        mism = int((keep_g != keep_w).sum())
-        check(err <= 1e-5, f"K1 {mode}: mean-kNN error {err}")
-        check(mism == 0, f"K1 {mode}: {mism} kept-mask mismatches")
-        check(bool(torch.isfinite(got).all()), f"K1 {mode}: non-finite")
+        err, mism = _knn_compare(k1, pts, valid, cols, k, mode)
         ms = cuda_time_ms(lambda: k1.knn_mean_dists(pts, valid, cols, k), 20)
+        dev_ms = sum(kernel_device_ms(
+            lambda: k1.knn_mean_dists(pts, valid, cols, k),
+            "knn_mean_dists").values())
         plain_ms = cuda_time_ms(
             lambda: k1.knn_mean_dists_plain(pts, valid, cols, k), 5, 1)
         # Work this data needs: valid rows x valid non-self candidates,
@@ -157,10 +226,42 @@ def phase_k1(rng, dev, b=400):
         nbytes = pts.numel() * 4 + valid.numel() + cols.numel() * 4 + b * n * 4
         bms, by = bound_ms(10 * pairs, nbytes)
         result[mode] = dict(max_abs_err=err, kept_mismatches=mism, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            shape=[b, n, int(cols.numel()), k])
+                            device_ms=dev_ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by,
+                            shape=[b, n, int(cols.numel()), k],
+                            valid_pairs=pairs)
         emit({"phase": "k1", "mode": mode, **result[mode]})
+    cases = {}
+    for name, pts, valid, cols, k in _knn_cases(rng, dev):
+        cases[name] = _knn_compare(k1, pts, valid, cols, k, name)[0]
+    emit({"phase": "k1", "mode": "cases", "max_abs_err": cases})
     return result["subset"]
+
+
+def _k2_inputs(rng, dev, s, t, p, h, w):
+    """Slots' NOCS and mask patches, boxes partly outside the image, and
+    depth frames with 10% holes."""
+    x0 = rng.uniform(-20, w - 20, s)
+    y0 = rng.uniform(-20, h - 20, s)
+    boxes = np.stack([x0, y0, x0 + rng.uniform(8, 160, s),
+                      y0 + rng.uniform(8, 120, s)], 1).astype(np.float32)
+    depth = rng.uniform(0.5, 5.0, (t, h, w)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.1] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.uniform(0, 1, (s, p, p, 3)).astype(np.float32),
+        rng.uniform(0, 1, (s, p, p)).astype(np.float32), boxes, depth)]
+
+
+def _k2_compare(k2, args, intr, g, what):
+    from mot3d_tpu_torch.pose.extraction import grid_extract
+
+    feats, valid = k2.pose_extract(*args, intr, g)
+    feats_w, valid_w = grid_extract(*args, intr, g)
+    sync()
+    check(bool((valid == valid_w).all()), f"K2 {what}: valid differs")
+    err = float((feats - feats_w).abs().max())
+    check(err <= 2e-5, f"K2 {what}: feats error {err}")
+    return feats, valid, err
 
 
 def phase_k2(rng, dev, cfg):
@@ -170,35 +271,29 @@ def phase_k2(rng, dev, cfg):
     t, i = cfg.tracking.seq_len, cfg.detection.detections_per_image
     h, w, g, p = cfg.camera.height, cfg.camera.width, 32, 28
     s = t * i
-    x0 = rng.uniform(-20, w - 20, s)
-    y0 = rng.uniform(-20, h - 20, s)
-    boxes = np.stack([x0, y0, x0 + rng.uniform(8, 160, s),
-                      y0 + rng.uniform(8, 120, s)], 1).astype(np.float32)
-    depth = rng.uniform(0.5, 5.0, (t, h, w)).astype(np.float32)
-    depth[rng.uniform(size=depth.shape) < 0.1] = 0.0
-    args = [torch.from_numpy(a).to(dev) for a in (
-        rng.uniform(0, 1, (s, p, p, 3)).astype(np.float32),
-        rng.uniform(0, 1, (s, p, p)).astype(np.float32), boxes, depth)]
+    args = _k2_inputs(rng, dev, s, t, p, h, w)
     cam = cfg.camera
     intr = torch.tensor([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy],
                          [0, 0, 1.0]], dtype=torch.float32, device=dev)
-    feats, valid = k2.pose_extract(*args, intr, g)
-    feats_w, valid_w = grid_extract(*args, intr, g)
-    sync()
-    check(bool((valid == valid_w).all()), "K2: valid differs")
-    err = float((feats - feats_w).abs().max())
-    check(err <= 2e-5, f"K2: feats error {err}")
+    feats, valid, err = _k2_compare(k2, args, intr, g, "path shapes")
     ms = cuda_time_ms(lambda: k2.pose_extract(*args, intr, g), 50)
+    dev_ms = sum(kernel_device_ms(lambda: k2.pose_extract(*args, intr, g),
+                                  "pose_extract").values())
     plain_ms = cuda_time_ms(lambda: grid_extract(*args, intr, g), 10)
     nbytes = (sum(a.numel() for a in args) * 4 + 36
               + feats.numel() * 4 + valid.numel())
     # ~60 fp32 operations per sample (weights, 2x2 taps for 4 channels,
     # backprojection).
     bms, by = bound_ms(60.0 * s * g * g, nbytes)
-    res = dict(max_abs_err=err, ms=ms,
+    # Odd P (per-thread staging) and G = 33 (a ragged last round, output
+    # rows that are not 16-byte aligned).
+    odd = _k2_compare(k2, _k2_inputs(rng, dev, 64, 4, 27, h, w), intr, 33,
+                      "P = 27, G = 33")[2]
+    res = dict(max_abs_err=max(err, odd), ms=ms, device_ms=dev_ms,
                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               shape=[s, g * g, p, h, w], valid_frac=float(valid.float()
-                                                           .mean()))
+               shape=[s, g * g, p, h, w],
+               valid_frac=float(valid.float().mean()),
+               odd_case_max_abs_err=odd)
     emit({"phase": "k2", **res})
     return res
 
@@ -279,8 +374,8 @@ def phase_k3(rng, dev, cfg):
     shapes = [(t, k, det.rpn_nms_thresh) for k in rpn_k]
     shapes.append((t * det.num_classes, det.rpn_post_nms_topk_test,
                    det.nms_thresh_test))
-    total = dict(ms=0.0, plain_ms=0.0, with_sort_ms=0.0, ops=0.0, nbytes=0.0,
-                 mismatches=0, kept=0)
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, with_sort_ms=0.0,
+                 ops=0.0, nbytes=0.0, kept=0)
     per_shape = []
     for q, k, thr in shapes:
         size = (8.0, 200.0) if thr == det.rpn_nms_thresh else (8.0, 120.0)
@@ -305,27 +400,25 @@ def phase_k3(rng, dev, cfg):
         ops = 14.0 * float((nv * (nv - 1) / 2).sum())
         nbytes = 18.0 * q * k
         # The call's two kernels apart, from the profiler's device times.
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                k3.nms_sorted(boxes, valid, thr)
-            sync()
-        split = {name: e.self_device_time_total / 1e3 / e.count
-                 for e in prof.key_averages()
+        per_kernel = kernel_device_ms(
+            lambda: k3.nms_sorted(boxes, valid, thr), "nms_", 5)
+        split = {name: t for key, t in per_kernel.items()
                  for name in ("nms_pairs_kernel", "nms_scan_kernel")
-                 if name in e.key}
+                 if name in key}
         per_shape.append({"problems": q, "k": k, "thresh": thr, "ms": ms,
                           "kernel_ms": split,
                           "plain_ms": plain_ms, "with_sort_ms": sort_ms,
                           "bound_ms": bound_ms(ops, nbytes)[0],
                           "kept": int(got.sum())})
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+        for key, val in (("ms", ms), ("device_ms", sum(split.values())),
+                         ("plain_ms", plain_ms),
                          ("with_sort_ms", sort_ms), ("ops", ops),
                          ("nbytes", nbytes), ("kept", int(got.sum()))):
             total[key] += val
     bms, by = bound_ms(total["ops"], total["nbytes"])
     res = dict(max_abs_err=0.0, kept_mismatches=0, ms=total["ms"],
-               plain_ms=total["plain_ms"], with_sort_ms=total["with_sort_ms"],
+               device_ms=total["device_ms"], plain_ms=total["plain_ms"],
+               with_sort_ms=total["with_sort_ms"],
                bound_ms=bms, bound_by=by)
     emit({"phase": "k3", "adversarial_cases": cases, **res,
           "what": "one sequence's 6 launches (5 RPN levels, 1 class-wise); "
@@ -750,6 +843,10 @@ def phase_turns(steps, seqs, draws, frames):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run the device, build, K1 and K2 phases and stop "
+                         "(no status line): to time one checkout's kernels "
+                         "beside another's in one session")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -766,6 +863,8 @@ def main() -> int:
     phase_build()
     k1_res = phase_k1(rng, dev)
     k2_res = phase_k2(rng, dev, cfg)
+    if args.kernels_only:
+        return 0
     det, trk, template, seqs, draws, main_launches, main_step = \
         phase_main(args.seed, cfg, dev)
     pallas_launches = phase_pallas(cfg, det, trk, template, seqs, draws, dev)
@@ -779,17 +878,19 @@ def main() -> int:
     kernels = [
         {"name": "knn_outlier", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/knn_outlier.cu",
-         "replaces": "mot3d_tpu/ops/pallas/knn_outlier.py:67",
+         "replaces": "mot3d_tpu/ops/pallas/knn_outlier.py:84",
          "launches": main_launches["knn_outlier"],
          "max_abs_err": k1_res["max_abs_err"], "ms": k1_res["ms"],
+         "device_ms": k1_res["device_ms"],
          "plain_ms": k1_res["plain_ms"], "bound_ms": k1_res["bound_ms"],
          "bound_by": k1_res["bound_by"], "library_ms": None},
         {"name": "pose_extract", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/pose_extract.cu",
-         "replaces": "mot3d_tpu/ops/pallas/pose_extract.py:102",
+         "replaces": "mot3d_tpu/ops/pallas/pose_extract.py:129",
          "launches": pallas_launches["pose_extract"],
          "launches_path": "main path with pose.extraction='pallas'",
          "max_abs_err": k2_res["max_abs_err"], "ms": k2_res["ms"],
+         "device_ms": k2_res["device_ms"],
          "plain_ms": k2_res["plain_ms"], "bound_ms": k2_res["bound_ms"],
          "bound_by": k2_res["bound_by"], "library_ms": None},
         {"name": "nms", "route": "cuda",
@@ -798,6 +899,7 @@ def main() -> int:
          "launches": eval_launches["nms"],
          "launches_path": "evaluation path (import mode, fast_nms=False)",
          "max_abs_err": k3_res["max_abs_err"], "ms": k3_res["ms"],
+         "device_ms": k3_res["device_ms"],
          "plain_ms": k3_res["plain_ms"], "bound_ms": k3_res["bound_ms"],
          "bound_by": k3_res["bound_by"], "library_ms": None},
     ]

@@ -118,7 +118,7 @@ def library() -> ctypes.CDLL:
     """The built kernel library, with every entry point's signature set."""
     lib = ctypes.CDLL(str(build().path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mot3d_knn_mean_dists.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.mot3d_knn_mean_dists.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.mot3d_knn_mean_dists.restype = i
     lib.mot3d_pose_extract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                        i, f, p]

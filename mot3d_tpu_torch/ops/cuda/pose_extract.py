@@ -5,13 +5,19 @@ pose_extract_pallas`, which ran one frame per call with the depth map held
 in VMEM.  Here one launch covers all T * I slots of a sequence: depth is
 (T, H, W) and slot s reads frame s // I.
 
-On the H100 the work is bound by bytes: the NOCS and mask patches, the
-depth samples and the (S, G*G, 6) output, at about three fp32 operations
-per byte.  The CUDA kernel (`csrc/pose_extract.cu`) stages each slot's
-patches in shared memory, reads its G*G depth samples from global memory (a
-240 x 320 frame does not fit a block's shared memory), and evaluates the at
-most 2 x 2 non-zero bilinear taps per sample instead of the plain version's
-gathers of whole tensors.
+On the H100 the work is bound by latency, not by bandwidth: a slot moves
+~38 KB (patches, depth samples, the (G*G, 6) output), the whole call of a
+sequence ~23 MB, but each slot's samples wait on a patch copy and on depth
+gathers that depend on the box.  The CUDA kernel (`csrc/pose_extract.cu`)
+gives each slot a block that stages its patches with bulk copies (TMA) on
+an mbarrier, or per thread where P is odd or a pointer is not 16-byte
+aligned; computes the G row and G column axes (pixel, taps, weights) once
+into shared memory while the copy runs; issues all its depth gathers before
+it waits on anything (a 240 x 320 frame does not fit a block's shared
+memory); and stages the samples' outputs in shared memory so that they
+leave as coalesced 16-byte stores.  It evaluates the at most 2 x 2 non-zero
+bilinear taps per sample instead of the plain version's gathers of whole
+tensors.
 
 `pose_extract` launches the kernel for a CUDA tensor and takes the plain
 version, `pose/extraction.py:grid_extract`, only for a CPU tensor.
@@ -26,7 +32,17 @@ from mot3d_tpu_torch.pose.extraction import grid_extract
 
 launches = LaunchCounter()
 
-MAX_PATCH = 48  # 36 KB of shared memory per block
+MAX_PATCH = 48
+SMEM_LIMIT = 232448         # bytes of shared memory a Hopper block may use
+SAMPLES_PER_ROUND = 1024    # staged in shared memory per round (kChunk)
+
+
+def smem_bytes(p: int, grid: int) -> int:
+    """Dynamic shared memory of one block, as `csrc/pose_extract.cu:
+    smem_bytes` lays it out: mbarrier (16), NOCS and mask patch (16 P^2),
+    the two axis tables (2 G x 24 bytes), one round's staged feats and
+    valid bytes (25 per sample)."""
+    return 16 + 16 * p * p + 48 * grid + 25 * SAMPLES_PER_ROUND
 
 
 def pose_extract(nocs: torch.Tensor, masks: torch.Tensor,
@@ -62,8 +78,11 @@ def pose_extract(nocs: torch.Tensor, masks: torch.Tensor,
         raise ValueError("pose_extract inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pose_extract expects contiguous tensors")
-    if not 1 <= p <= MAX_PATCH or grid < 1:
-        raise ValueError(f"need 1 <= P <= {MAX_PATCH} and grid >= 1")
+    if not 1 <= p <= MAX_PATCH or grid < 1 \
+            or smem_bytes(p, grid) > SMEM_LIMIT:
+        raise ValueError(f"need 1 <= P <= {MAX_PATCH} and a grid whose "
+                         f"axis tables fit shared memory, got P={p}, "
+                         f"grid={grid}")
     feats = torch.empty((s, grid * grid, 6), dtype=torch.float32,
                         device=nocs.device)
     valid = torch.empty((s, grid * grid), dtype=torch.bool,

@@ -15,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_helpers import knn_cases
+
 pytestmark = pytest.mark.gpu
+KNN_CASES = knn_cases()
 
 
 def _cuda():
@@ -24,10 +27,27 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _knn_check(k1, pts, valid, cols, k):
+    """K1 against its plain version on every row (invalid rows are 0 in
+    both), and the kept masks after the threshold."""
+    from mot3d_tpu_torch.geometry.outlier import _threshold_keep
+
+    before = k1.launches.count
+    got = k1.knn_mean_dists(pts, valid, cols, k)
+    want = k1.knn_mean_dists_plain(pts, valid, cols, k)
+    assert k1.launches.count == before + 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert not got[~valid].any()
+    for min_points in (1, 100):
+        assert torch.equal(_threshold_keep(got, valid, 2.0, min_points),
+                           _threshold_keep(want, valid, 2.0, min_points))
+
+
 @pytest.mark.parametrize("candidates", [256, 0])
 def test_knn_outlier_kernel_matches_plain(candidates):
-    from mot3d_tpu_torch.geometry.outlier import (_threshold_keep,
-                                                  candidate_columns)
+    """The path's shapes: 1024 points, 256 candidates with k = 5 (subset
+    mode) or all 1024 with k = 20 (full mode)."""
+    from mot3d_tpu_torch.geometry.outlier import candidate_columns
     from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
 
     dev = _cuda()
@@ -38,16 +58,25 @@ def test_knn_outlier_kernel_matches_plain(candidates):
     pts, valid = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
     cols, k = candidate_columns(1024, candidates, 20, dev)
     valid[0, cols.long()] = False
-    before = k1.launches.count
-    got = k1.knn_mean_dists(pts, valid, cols, k)
-    want = k1.knn_mean_dists_plain(pts, valid, cols, k)
-    assert k1.launches.count == before + 1
-    assert float((got - want).abs()[valid].max()) <= 1e-5
-    assert torch.equal(_threshold_keep(got, valid, 2.0, 100),
-                       _threshold_keep(want, valid, 2.0, 100))
+    _knn_check(k1, pts, valid, cols, k)
 
 
-def test_pose_extract_kernel_matches_plain():
+@pytest.mark.parametrize("name", sorted(KNN_CASES))
+def test_knn_outlier_kernel_matches_plain_on_case(name):
+    """Every compiled top-k width, C = 1 and 2048, exact ties, and
+    detections with no valid points, no valid candidates or fewer than k."""
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+
+    dev = _cuda()
+    pts, valid, cols, k = KNN_CASES[name]
+    _knn_check(k1, *(torch.from_numpy(a).to(dev) for a in (pts, valid, cols)),
+               k)
+
+
+@pytest.mark.parametrize("p,grid", [(28, 32), (27, 33)])
+def test_pose_extract_kernel_matches_plain(p, grid):
+    """The path's shapes (bulk-copy staging), and odd P with G = 33
+    (per-thread staging, a ragged last round, unaligned output rows)."""
     from mot3d_tpu_torch.ops.cuda import pose_extract as k2
     from mot3d_tpu_torch.pose.extraction import grid_extract
 
@@ -59,13 +88,13 @@ def test_pose_extract_kernel_matches_plain():
     boxes = np.stack([x0, y0, x0 + rng.uniform(8, 160, s),
                       y0 + rng.uniform(8, 120, s)], 1)
     args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-        rng.uniform(size=(s, 28, 28, 3)), rng.uniform(size=(s, 28, 28)),
+        rng.uniform(size=(s, p, p, 3)), rng.uniform(size=(s, p, p)),
         boxes, rng.uniform(0.5, 5, (f, 240, 320)))]
     intr = torch.tensor([[292.9, 0, 159.5], [0, 292.9, 119.5], [0, 0, 1]],
                         device=dev)
     before = k2.launches.count
-    feats, valid = k2.pose_extract(*args, intr, 32)
-    feats_w, valid_w = grid_extract(*args, intr, 32)
+    feats, valid = k2.pose_extract(*args, intr, grid)
+    feats_w, valid_w = grid_extract(*args, intr, grid)
     assert k2.launches.count == before + 1
     assert torch.equal(valid, valid_w)
     assert float((feats - feats_w).abs().max()) <= 2e-5

@@ -141,3 +141,63 @@ def nms_cases():
     add("batch_dims", _boxes(rng, (2, 3, 37)),
         valid=rng.uniform(size=(2, 3, 37)) < 0.8, thresh=0.7)
     return cases
+
+
+def _cloud(rng, b, n):
+    """A dense cluster about the origin with a few far points per
+    detection.  (Away from the origin the expanded d2 cancels: two orders
+    of summation then differ by more than 1e-5 in the mean distance.)"""
+    pts = rng.normal(size=(b, n, 3)).astype(np.float32) * 0.1
+    pts[:, : max(1, n // 40)] *= 30.0
+    return pts
+
+
+def _subset(n, candidates):
+    """`geometry/outlier.py:candidate_columns`' evenly spread columns."""
+    return ((np.arange(candidates) * n + n // 2) // candidates).astype(
+        np.int32)
+
+
+def knn_cases():
+    """name -> (points (B, N, 3) f32, valid (B, N) bool, cols (C,) int32, k):
+    the inputs K1 must get right: every compiled top-k width (k = 1, 5, 7,
+    12, 20, 32), C = 1 and C = 2048, duplicated points whose distances tie
+    exactly, and detections whose points or candidates are all invalid or
+    that have fewer than k valid candidates."""
+    rng = np.random.default_rng(12)
+    cases = {}
+
+    def add(name, pts, valid, cols, k):
+        cases[name] = (pts.astype(np.float32), valid.astype(bool),
+                       np.asarray(cols, np.int32), k)
+
+    def ragged(b, n):
+        return np.arange(n)[None] < rng.integers(n // 4, n + 1, (b, 1))
+
+    add("k1_subset", _cloud(rng, 2, 256), ragged(2, 256), _subset(256, 64),
+        1)
+    add("k5_subset", _cloud(rng, 3, 300), ragged(3, 300), _subset(300, 80),
+        5)
+    add("k7_full", _cloud(rng, 2, 200), rng.uniform(size=(2, 200)) < 0.7,
+        np.arange(200), 7)
+    add("k12_full", _cloud(rng, 2, 128), ragged(2, 128), np.arange(128), 12)
+    add("k20_full", _cloud(rng, 2, 256), ragged(2, 256), np.arange(256), 20)
+    add("k32_full", _cloud(rng, 2, 192), ragged(2, 192), np.arange(192), 32)
+    add("c1", _cloud(rng, 2, 64), np.ones((2, 64), bool), [10], 1)
+    add("c2048", _cloud(rng, 1, 2048), ragged(1, 2048), np.arange(2048), 9)
+    # Multiples of 1/16 below 3 in magnitude: every product and sum of d2 is
+    # exact in float32 whatever the order, so duplicates are at exactly 0
+    # and equal distances tie exactly in every implementation.
+    base = rng.integers(-48, 48, (2, 64, 3)) / 16.0
+    dup = np.repeat(base, 4, axis=1)                 # each point 4 times
+    dup_valid = np.ones((2, 256), bool)
+    dup_valid[1, 200:] = False
+    add("duplicates", dup, dup_valid, np.arange(256), 5)
+    add("duplicates_subset", dup, dup_valid, _subset(256, 64), 2)
+    cols = _subset(256, 64)
+    degenerate = np.ones((4, 256), bool)
+    degenerate[0] = False                            # every point invalid
+    degenerate[1, cols] = False                      # every candidate invalid
+    degenerate[2, cols[3:]] = False                  # 3 valid candidates < k
+    add("degenerate_detections", _cloud(rng, 4, 256), degenerate, cols, 5)
+    return cases

@@ -35,7 +35,17 @@ Phases, one JSON line each; any failure exits non-zero:
      oracle sequence whose MOTA must be 1; one sequence under the profiler;
  10. both paths in turns (default, evaluation, evaluation, default), to
      compare their frames/s inside one process;
-then the kernels line, the nvidia-smi line and the final status line.
+ 11. combined training at full width through `CombinedTrainer.train`
+     (windows of 2 frames of a synthetic sequence with masks, voxels and
+     NOCS ramps; gates open): 3 warm-up and 10 timed steps (median ms per
+     step, peak memory, K1 launches per step, finite losses, a non-zero
+     tracking loss, both models updated), one step under the profiler, K1
+     on the training path's own inputs against its plain version, the
+     NOCS head's gradient from the tracking loss alone (non-zero with
+     `pose.differentiable=True`, exactly 0 detached), one step at the
+     untouched default config and a checkpoint save -> restore -> step;
+then the kernels line (with each kernel's launches on the training path),
+the nvidia-smi line and the final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
 With --kernels-only it stops after phase 4: copied into another checkout
@@ -840,6 +850,297 @@ def phase_turns(steps, seqs, draws, frames):
     emit({"phase": "turns", "passes": passes})
 
 
+def _train_frames(rng, cfg, cam_x=0.0):
+    """One synthetic sequence of `_sequence` as training frames: each
+    object also gets its mask (its 2D box), a 32^3 solid-box voxel grid
+    and a 28 x 28 NOCS coordinate ramp with a class, as the JAX package's
+    `data/synthetic_detection.py` draws them (copied here, not imported).
+    Identities are rolled by one per frame, as `__graft_entry__.py` rolls
+    them: every cross-frame edge is then a negative, so the balanced BCE
+    has pos_weight 1 and a non-zero value."""
+    from mot3d_tpu_torch.data.samples import DetectionSample
+
+    seq = _sequence(rng, cfg, cam_x)
+    det = cfg.detection
+    t, m = seq["gt_valid2d"].shape
+    ramp = np.linspace(0.1, 0.9, 28, dtype=np.float32)
+    nocs = np.stack([np.tile(ramp, (28, 1)), np.tile(ramp[:, None], (1, 28)),
+                     np.full((28, 28), 0.5, np.float32)], -1)
+    classes = (np.arange(m) % det.num_classes).astype(np.int32)
+    voxels = np.zeros((m, 32, 32, 32), np.float32)
+    for j, c in enumerate(classes):
+        d = 8 + 2 * (c % 6)
+        voxels[j, 4:4 + d, 4:28, 6:26] = 1.0
+    frames = []
+    for f in range(t):
+        masks = np.zeros((m, det.pad_height, det.pad_width), np.float32)
+        for j, (x0, y0, x1, y1) in enumerate(seq["gt_boxes2d"][f]):
+            if seq["gt_valid2d"][f, j]:
+                masks[j, int(y0):int(y1), int(x0):int(x1)] = 1.0
+        frames.append(DetectionSample(
+            image=seq["images"][f], depth=seq["depth"][f],
+            campose=seq["campose"][f], boxes=seq["gt_boxes2d"][f],
+            classes=classes, valid=seq["gt_valid2d"][f], masks=masks,
+            voxels=voxels, nocs=np.repeat(nocs[None], m, 0),
+            boxes3d=seq["gt_boxes3d"][f],
+            object_ids=np.roll(np.arange(m, dtype=np.int32), f),
+            locations=seq["gt_boxes3d"][f].mean(-2),
+            rotations=np.zeros((m, 3), np.float32),
+            scales3d=np.ones(m, np.float32)))
+    return frames
+
+
+def _open_train_gates(cfg):
+    """Every gate open, as `__graft_entry__.py:140-144` opens them, so each
+    detection slot of the random-weight detector flows through pose into
+    the graph (with closed gates the tracking loss is identically 0); the
+    detector's own 0.05 score gate too, since a few updates push the
+    random classifier's foreground scores under it."""
+    return cfg.replace(
+        detection=dataclasses.replace(cfg.detection, score_thresh_test=-1.0),
+        combined=dataclasses.replace(cfg.combined, objectness_thres=-1.0,
+                                     iou2d_thres=-1.0),
+        pose=dataclasses.replace(cfg.pose, min_inlier_ratio=0.0),
+        tracking=dataclasses.replace(cfg.tracking, box_iou_thres=0.0))
+
+
+def _trainer(cfg, out_dir, dev):
+    """A CombinedTrainer whose mask predictor passes the 0.5 extraction
+    threshold: with torch's initialisation every mask logit of the random
+    detector is below 0, so no point would reach the pose fit."""
+    from mot3d_tpu_torch.train.combined_trainer import CombinedTrainer
+
+    tr = CombinedTrainer(cfg, out_dir, device=dev)
+    with torch.no_grad():
+        tr.det_model.mask_head.Conv_4.bias.fill_(3.0)
+    return tr
+
+
+def _params(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _changed(model, before) -> bool:
+    return any(not torch.equal(v, before[k])
+               for k, v in model.state_dict().items())
+
+
+def _profile_train_step(tr, window, top=12, shapes=False):
+    """One `CombinedTrainer.train` step under torch.profiler: device busy
+    and idle share of its wall time and the top kernels; with `shapes`,
+    the top aten operators by the device time of the kernels they launch,
+    with their input shapes (recording them slows the host, so that step's
+    idle share is not the step's own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
+        t0 = time.perf_counter()
+        tr.train(iter([window]), max_iter=tr.state.step + 1)
+        sync()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    res = {"wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "kernel_launches": int(sum(e.count for e in events)),
+           "top": [{"name": e.key[:90], "count": e.count,
+                    "device_ms": e.self_device_time_total / 1e3}
+                   for e in events[:top]]}
+    if shapes:
+        ops = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.key.startswith("aten::") and e.device_time_total > 0]
+        ops.sort(key=lambda e: e.device_time_total, reverse=True)
+        res["top_ops"] = [{"op": e.key, "shapes": str(e.input_shapes)[:120],
+                           "count": e.count,
+                           "device_ms": e.device_time_total / 1e3}
+                          for e in ops[:top]]
+    return res
+
+
+def phase_train(seed, cfg, dev, warmup=3, timed=10):
+    """End-to-end combined training at full width through
+    `CombinedTrainer.train`: windows of combined.batch_size = 2 frames,
+    detached pose, joint_grad, remat (the trainer's defaults), open gates;
+    then one step at the untouched default config, the differentiable pose
+    (the NOCS head's gradient from the tracking loss alone), K1 on the
+    training path's own inputs against its plain version, and a
+    save -> restore -> step round trip through CheckpointManager."""
+    import shutil
+
+    from mot3d_tpu_torch.geometry import outlier
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+    from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.parallel.train_step import (CombinedBatch,
+                                                     make_combined_train_step,
+                                                     make_window_draws)
+    from mot3d_tpu_torch.train.checkpoints import CheckpointManager
+    from mot3d_tpu_torch.train.combined_trainer import \
+        samples_to_combined_window
+
+    work = "build/chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    # Training runs at cuDNN's default algorithm choice, as a user's run
+    # does; main() pins deterministic algorithms for the kernel phases.
+    torch.backends.cudnn.deterministic = False
+    cfg_o = _open_train_gates(cfg)
+    rng = np.random.default_rng(seed + 10)
+    frames = _train_frames(rng, cfg_o)
+    t = cfg.combined.batch_size
+    windows = [frames[i:i + t] for i in range(len(frames) - t + 1)]
+    check(len(windows) >= warmup + timed + 6, "too few training windows")
+
+    torch.manual_seed(seed)
+    tr = _trainer(cfg_o, f"{work}/open", dev)
+    det0, trk0 = _params(tr.det_model), _params(tr.trk_model)
+    tr.train(iter(windows[:warmup]), max_iter=warmup)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, k1_per_step, losses = [], [], []
+    for w in windows[warmup:warmup + timed]:
+        k1.launches.reset()
+        k2.launches.reset()
+        k3.launches.reset()
+        sync()
+        t0 = time.perf_counter()
+        metrics = tr.train(iter([w]), max_iter=tr.state.step + 1)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1_per_step.append(k1.launches.count)
+        check(k2.launches.count == 0 and k3.launches.count == 0,
+              "train: K2 or K3 launched at the default extraction and NMS")
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"train: non-finite losses {metrics}")
+        losses.append(metrics)
+    peak = torch.cuda.max_memory_allocated()
+    # Remat recomputes the window forward in the backward: K1 runs twice
+    # in the forward (depth cloud, NOCS cloud) and twice again there.
+    check(all(n == 4 for n in k1_per_step),
+          f"train: K1 launches per step {k1_per_step}, expected 4")
+    check(all(m["tracking_loss"] > 0 for m in losses),
+          "train: the tracking loss is 0 with open gates")
+    check(_changed(tr.det_model, det0) and _changed(tr.trk_model, trk0),
+          "train: a parameter set did not change")
+
+    # One step under the profiler at cuDNN's default (non-deterministic)
+    # algorithm choice, as a user's run gets it, and one with the
+    # deterministic algorithms the earlier phases pin.
+    profile_res = _profile_train_step(tr, windows[warmup + timed])
+    profile_ops = _profile_train_step(tr, windows[warmup + timed + 1], top=8,
+                                      shapes=True)
+    torch.backends.cudnn.deterministic = True
+    profile_det = _profile_train_step(tr, windows[warmup + timed + 2], top=3)
+    torch.backends.cudnn.deterministic = False
+
+    # K1 on the training path's own inputs (the depth and the NOCS cloud of
+    # one window: T * I = 32 rows x 1024 points, 256 candidates, k = 5).
+    seen = []
+    orig = outlier.knn_mean_dists
+
+    def record(pts, val, cols, k):
+        seen.append((pts.clone(), val.clone(), cols.clone(), k))
+        return orig(pts, val, cols, k)
+
+    tmpl = tr.window_template
+    step_d = make_combined_train_step(tr.det_model, tr.trk_model, tmpl, cfg_o,
+                                      remat=False, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    win = samples_to_combined_window(windows[-1])
+    draws = make_window_draws(tr.det_model, cfg_o, 1, t, gen)
+    one = type(draws)(type(draws.detection)(*(x[0] for x in draws.detection)),
+                      draws.ransac[0])
+    outlier.knn_mean_dists = record
+    try:
+        step_d.window_forward(win, one)
+    finally:
+        outlier.knn_mean_dists = orig
+    check(len(seen) == 2, f"train: K1 called {len(seen)} times per forward")
+    k1_train = []
+    for pts, val, cols, k in seen:
+        got = k1.knn_mean_dists(pts, val, cols, k)
+        want = k1.knn_mean_dists_plain(pts, val, cols, k)
+        sync()
+        err = float((got - want).abs().max())
+        check(err == 0.0, f"train: K1 differs from its plain version by {err}")
+        k1_train.append({"shape": list(pts.shape) + [int(cols.numel()), k],
+                         "valid_points": int(val.sum()),
+                         "max_abs_err": err})
+
+    # The differentiable pose: d(tracking loss)/d(NOCS head), on one window.
+    nocs_params = list(tr.det_model.nocs_head.parameters())
+    grad_abs = {}
+    for diff in (False, True):
+        cfg_x = cfg_o.replace(pose=dataclasses.replace(cfg_o.pose,
+                                                       differentiable=diff))
+        step_x = make_combined_train_step(tr.det_model, tr.trk_model, tmpl,
+                                          cfg_x, device=dev)
+        _, tl = step_x.window_forward(win, one)
+        grads = torch.autograd.grad(tl, nocs_params, allow_unused=True)
+        vals = [float(g.abs().sum()) for g in grads if g is not None]
+        check(all(np.isfinite(v) for v in vals),
+              "train: non-finite NOCS-head gradient")
+        grad_abs[diff] = sum(vals)
+    check(grad_abs[False] == 0.0,
+          f"train: detached pose leaks {grad_abs[False]} into the NOCS head")
+    check(grad_abs[True] > 0.0,
+          "train: no gradient from the tracking loss into the NOCS head")
+    # ... and one update with it.
+    step_x(tr.state, CombinedBatch(*(x[None] for x in win)), generator=gen)
+    check(all(bool(torch.isfinite(p).all())
+              for p in tr.det_model.parameters()),
+          "train: non-finite detector after a differentiable-pose step")
+
+    # One step at the untouched default config (closed gates).
+    torch.manual_seed(seed + 1)
+    tr_d = _trainer(cfg, f"{work}/default", dev)
+    m_default = tr_d.train(iter(windows[:1]), max_iter=1)
+    check(all(np.isfinite(v) for v in m_default.values()),
+          "train: non-finite losses at the default config")
+
+    # save -> restore -> one more step.
+    mgr = CheckpointManager(f"{work}/ckpt")
+    saved_step = tr.state.step
+    check(mgr.save(saved_step, tr.state), "train: checkpoint not saved")
+    det_s, trk_s = _params(tr.det_model), _params(tr.trk_model)
+    tr.train(iter([windows[-2]]), max_iter=tr.state.step + 1)
+    check(_changed(tr.det_model, det_s), "train: no update after the save")
+    mgr.restore(tr.state)
+    check(tr.state.step == saved_step and not _changed(tr.det_model, det_s)
+          and not _changed(tr.trk_model, trk_s),
+          "train: restore did not give the saved state back")
+    m_after = tr.train(iter([windows[-2]]), max_iter=tr.state.step + 1)
+    check(all(np.isfinite(v) for v in m_after.values()),
+          "train: non-finite losses after the restore")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.backends.cudnn.deterministic = True
+
+    res = {"phase": "train",
+           "config": "default Config(), gates open; windows of 2 frames",
+           "warmup_steps": warmup, "timed_steps": timed,
+           "median_ms_per_step": float(np.median(step_ms)),
+           "ms_per_step": step_ms,
+           "max_memory_allocated_bytes": peak,
+           "k1_launches_per_step": k1_per_step,
+           "last_metrics": losses[-1],
+           "tracking_loss": [m["tracking_loss"] for m in losses],
+           "profile": profile_res,
+           "top_ops": profile_ops["top_ops"],
+           "profile_cudnn_deterministic": profile_det,
+           "k1_training_inputs": k1_train,
+           "nocs_head_grad_abs_sum": {"detached": grad_abs[False],
+                                      "differentiable": grad_abs[True]},
+           "default_config_step": m_default,
+           "checkpoint": {"saved_step": saved_step, "restored": True,
+                          "next_step_metrics": m_after}}
+    emit(res)
+    return {"knn_outlier": sum(k1_per_step), "pose_extract": 0, "nms": 0,
+            "steps": timed}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -874,6 +1175,7 @@ def main() -> int:
                                           draws, dev)
     phase_turns({"main_path": main_step, "eval_path": eval_step}, seqs, draws,
                 cfg.tracking.seq_len)
+    train_launches = phase_train(args.seed, cfg, dev)
 
     kernels = [
         {"name": "knn_outlier", "route": "cuda",
@@ -883,7 +1185,8 @@ def main() -> int:
          "max_abs_err": k1_res["max_abs_err"], "ms": k1_res["ms"],
          "device_ms": k1_res["device_ms"],
          "plain_ms": k1_res["plain_ms"], "bound_ms": k1_res["bound_ms"],
-         "bound_by": k1_res["bound_by"], "library_ms": None},
+         "bound_by": k1_res["bound_by"], "library_ms": None,
+         "train_launches": train_launches["knn_outlier"]},
         {"name": "pose_extract", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/pose_extract.cu",
          "replaces": "mot3d_tpu/ops/pallas/pose_extract.py:129",
@@ -892,7 +1195,8 @@ def main() -> int:
          "max_abs_err": k2_res["max_abs_err"], "ms": k2_res["ms"],
          "device_ms": k2_res["device_ms"],
          "plain_ms": k2_res["plain_ms"], "bound_ms": k2_res["bound_ms"],
-         "bound_by": k2_res["bound_by"], "library_ms": None},
+         "bound_by": k2_res["bound_by"], "library_ms": None,
+         "train_launches": train_launches["pose_extract"]},
         {"name": "nms", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/nms.cu",
          "replaces": "mot3d_tpu/ops/pallas/nms_kernel.py:81",
@@ -901,7 +1205,8 @@ def main() -> int:
          "max_abs_err": k3_res["max_abs_err"], "ms": k3_res["ms"],
          "device_ms": k3_res["device_ms"],
          "plain_ms": k3_res["plain_ms"], "bound_ms": k3_res["bound_ms"],
-         "bound_by": k3_res["bound_by"], "library_ms": None},
+         "bound_by": k3_res["bound_by"], "library_ms": None,
+         "train_launches": train_launches["nms"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

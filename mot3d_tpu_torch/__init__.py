@@ -8,8 +8,10 @@ functions keep the JAX package's layouts (NHWC images, (..., 28, 28, 3) NOCS
 patches, (N, 32, 32, 32) voxels); channel-first permutes happen inside the
 modules.
 
-Entry points (`parallel.infer_step.make_sequence_infer_step` and the model
-constructors) run on the GPU unless the caller passes `device="cpu"`.  The
+Entry points (`parallel.infer_step.make_sequence_infer_step`, the train
+steps of `parallel.train_step`, `train.combined_trainer.CombinedTrainer`
+and the model constructors) run on the GPU unless the caller passes
+`device="cpu"`.  The
 CUDA kernels under `ops/cuda/` are built from `csrc/` on their first use on
 a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch version.
 """

@@ -281,11 +281,11 @@ class CombinedConfig:
     tracking_weight_decay: float = 1e-4
     # One joint backward (detection total + tracking loss over both
     # parameter sets) instead of the reference's two backward calls
-    # (`train_combined.py:546-553`).  Read by the training path, which this
-    # port does not implement yet.
+    # (`train_combined.py:546-553`); read by
+    # `parallel/train_step.py:make_combined_train_step`.
     joint_grad: bool = True
     # Gradient accumulation over the windows of a combined batch (one
-    # window's activations in flight).  Read by the training path.
+    # window's activations in flight).
     accum_windows: bool = False
     max_iter: int = 240_000
     eval_period: int = 1000

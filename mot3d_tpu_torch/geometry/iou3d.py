@@ -1,4 +1,4 @@
-"""Box IoU ops: BEV-polygon 3D IoU and 2D IoU
+"""Box IoU ops: BEV-polygon 3D IoU, 2D IoU and voxel IoU
 (counterpart of `mot3d_tpu/geometry/iou3d.py`).
 
 Replacement for the reference's qhull + Sutherland–Hodgman stack
@@ -148,3 +148,15 @@ def box2d_iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor
                      ) -> torch.Tensor:
     """(..., M, 4) x (..., N, 4) -> (..., M, N) 2D IoU matrix."""
     return box2d_iou(boxes1[..., :, None, :], boxes2[..., None, :, :])
+
+
+def voxel_iou(pred: torch.Tensor, gt: torch.Tensor, thresh: float = 0.5
+              ) -> torch.Tensor:
+    """Occupancy IoU of (..., D, H, W) grids at a probability threshold
+    (reference `compute_voxel_iou`); gt is binarised at 0.5."""
+    p = pred >= thresh
+    g = gt >= 0.5
+    dims = (-3, -2, -1)
+    inter = (p & g).sum(dims).to(pred.dtype)
+    union = (p | g).sum(dims).to(pred.dtype)
+    return inter / torch.clamp(union, min=1.0)

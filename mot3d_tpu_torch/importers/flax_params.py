@@ -22,7 +22,11 @@ holds the same tables for detectron2 export):
     encoder's Dense after its NDHWC flatten).
 
 The inputs are nested dicts of numpy arrays (e.g. `jax.device_get` of
-`model.init(...)`), with or without the top-level "params" key.
+`model.init(...)`), with or without the top-level "params" key.  Any tree
+of the params' structure maps the same way: a gradient tree, or the Adam
+moments of an optax state (`adamw_state_dict`), so a port run can continue
+a JAX run step for step.  float64 leaves stay float64; any other leaf
+becomes float32.
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ def _conv_transpose(k: np.ndarray) -> np.ndarray:
 def _leaf(path, value) -> tuple:
     """One flax leaf -> (torch key, array)."""
     *mods, name = path
-    arr = np.asarray(value, np.float32)
+    arr = np.asarray(value)
+    if arr.dtype != np.float64:
+        arr = arr.astype(np.float32)
     if name == "fc1_kernel":
         return ".".join(mods + ["fc1", "weight"]), arr.reshape(
             -1, arr.shape[-1]).T
@@ -103,7 +109,8 @@ def import_config(cfg: DetectionConfig) -> DetectionConfig:
 
 def mask_rcnn_state_dict(flax_params: Mapping[str, Any],
                          cfg: Config) -> Dict[str, torch.Tensor]:
-    """`mot3d_tpu.models.mask_rcnn.MaskRCNN` params -> the state_dict of
+    """`mot3d_tpu.models.mask_rcnn.MaskRCNN` params (or a tree of their
+    structure, such as their gradient) -> the state_dict of
     `mot3d_tpu_torch.models.mask_rcnn.MaskRCNN(cfg.detection)`."""
     check_norm(cfg.detection.norm)
     return flax_to_state_dict(flax_params)
@@ -111,10 +118,33 @@ def mask_rcnn_state_dict(flax_params: Mapping[str, Any],
 
 def tracker_state_dict(flax_params: Mapping[str, Any],
                        cfg: Config) -> Dict[str, torch.Tensor]:
-    """`mot3d_tpu.models.mpn.TrackerModel` params -> the state_dict of
+    """`mot3d_tpu.models.mpn.TrackerModel` params (or a tree of their
+    structure) -> the state_dict of
     `mot3d_tpu_torch.models.mpn.TrackerModel(cfg.graph)`."""
     if cfg.graph.time_aware_mp:
         raise NotImplementedError(
             "graph.time_aware_mp=True is not ported yet: ROADMAP.md Queue 1, "
             "item 'Time-aware message passing'")
     return flax_to_state_dict(flax_params)
+
+
+def adamw_state_dict(opt_state: Mapping[str, Any], model: torch.nn.Module,
+                     optimizer: torch.optim.Optimizer) -> dict:
+    """An `optax.adamw` state -> `optimizer.load_state_dict` input.
+
+    opt_state: {"mu": tree, "nu": tree, "count": int}, the first and second
+    moments and the update count of optax's `ScaleByAdamState`, as numpy;
+    the trees have the params' structure.  `optimizer` is a
+    `torch.optim.AdamW` over `model.parameters()` (one group, in
+    `named_parameters` order); its hyperparameters are kept.  The LR
+    schedule's position (count) is the caller's to set on its scheduler."""
+    mu = flax_to_state_dict(opt_state["mu"])
+    nu = flax_to_state_dict(opt_state["nu"])
+    names = [n for n, _ in model.named_parameters()]
+    if set(mu) != set(names) or set(nu) != set(names):
+        raise ValueError("optax moments do not match the model's parameters")
+    sd = optimizer.state_dict()
+    step = torch.tensor(float(opt_state["count"]))
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
+                       "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
+    return sd

@@ -1,5 +1,6 @@
 """Tracker networks: voxel encoder, message-passing graph net, edge
-classifier (counterpart of `mot3d_tpu/models/mpn.py`, inference half).
+classifier, and the tracking loss (counterpart of
+`mot3d_tpu/models/mpn.py`).
 
 The graph is a dense padded edge tensor with validity masks, and node
 aggregation uses the masked segment ops of `ops/segment.py`.  Submodule
@@ -26,6 +27,7 @@ from torch import nn
 
 from mot3d_tpu_torch.config import GraphConfig
 from mot3d_tpu_torch.device import resolve_device
+from mot3d_tpu_torch.models.rpn import softplus
 from mot3d_tpu_torch.ops.segment import segment_max, segment_mean, segment_sum
 
 
@@ -158,3 +160,29 @@ class TrackerModel(nn.Module):
         node_feats = self.voxel_encoder(voxels)
         states = self.graph_net(node_feats, src, dst, edge_attr, edge_mask)
         return torch.stack([self.edge_classifier(s)[..., 0] for s in states])
+
+
+def balanced_bce_loss(logits: torch.Tensor, targets: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Balanced BCE with pos_weight = #neg / #pos over the valid edges
+    (`Tracking/mpn_trainer.py:811-830`): mean over valid edges of
+    pos_weight * y * softplus(-x) + (1 - y) * softplus(x).  logits,
+    targets, mask (..., E); returns (...,)."""
+    mask_f = mask.to(logits.dtype)
+    targets = targets.to(logits.dtype)
+    num_all = torch.clamp(mask_f.sum(-1), min=1.0)
+    num_pos = (targets * mask_f).sum(-1)
+    pos_weight = torch.where(num_pos > 0,
+                             (num_all - num_pos)
+                             / torch.clamp(num_pos, min=1.0),
+                             torch.ones_like(num_pos))
+    per_edge = (pos_weight[..., None] * targets * softplus(-logits)
+                + (1.0 - targets) * softplus(logits))
+    return (per_edge * mask_f).sum(-1) / num_all
+
+
+def tracker_loss(logits_steps: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Deep supervision: mean of the balanced BCE over each classified MP
+    step (`Tracking/mpn_trainer.py:500-516`); logits_steps (S, E)."""
+    return balanced_bce_loss(logits_steps, targets, mask).mean()

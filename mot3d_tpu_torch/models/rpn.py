@@ -1,19 +1,27 @@
-"""Region proposal network, inference half (counterpart of
-`mot3d_tpu/models/rpn.py`): anchors, box coding, head and padded proposal
-selection.  Proposal counts are padded to config maxima with validity
-masks; every function takes a leading batch of images.
+"""Region proposal network (counterpart of `mot3d_tpu/models/rpn.py`):
+anchors, box coding, head, padded proposal selection and the training
+losses.  Proposal counts are padded to config maxima with validity masks;
+every function takes a leading batch of images.
+
+`select_proposals` is batch-native (the JAX package's
+`select_proposals_batched`); training calls it at the train top-k.
+Randomness: the anchor subsampling of `rpn_losses` (and the ROI sampling of
+`models/mask_rcnn.py:sample_rois`) takes its uniform draws as an input, one
+per anchor, where the JAX package draws them from a key with
+`jax.random.uniform`.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mot3d_tpu_torch.geometry.iou3d import box2d_iou_matrix
 from mot3d_tpu_torch.ops.nms import gather_rows, nms_mask, top_k_by_score
 
 _CLAMP = float(np.log(1000.0 / 16))
@@ -49,6 +57,27 @@ def level_slices(pad_h: int, pad_w: int, num_ratios: int,
     return [(int(offs[i]), int(offs[i + 1])) for i in range(len(strides))]
 
 
+def encode_deltas(anchors: torch.Tensor, boxes: torch.Tensor
+                  ) -> torch.Tensor:
+    """Box -> (dx, dy, dw, dh) relative to anchors (Faster R-CNN coding)."""
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = anchors[..., 0] + aw / 2
+    ay = anchors[..., 1] + ah / 2
+    bw = boxes[..., 2] - boxes[..., 0]
+    bh = boxes[..., 3] - boxes[..., 1]
+    bx = boxes[..., 0] + bw / 2
+    by = boxes[..., 1] + bh / 2
+    aw_c = torch.clamp(aw, min=1e-6)
+    ah_c = torch.clamp(ah, min=1e-6)
+    return torch.stack([
+        (bx - ax) / aw_c,
+        (by - ay) / ah_c,
+        torch.log(torch.clamp(bw, min=1e-6) / aw_c),
+        torch.log(torch.clamp(bh, min=1e-6) / ah_c),
+    ], dim=-1)
+
+
 def decode_deltas(anchors: torch.Tensor, deltas: torch.Tensor
                   ) -> torch.Tensor:
     aw = anchors[..., 2] - anchors[..., 0]
@@ -72,6 +101,19 @@ def clip_boxes(boxes: torch.Tensor, height: int, width: int) -> torch.Tensor:
         torch.clamp(boxes[..., 2], 0, width),
         torch.clamp(boxes[..., 3], 0, height),
     ], dim=-1)
+
+
+def smooth_l1(x: torch.Tensor, beta: float = 0.0) -> torch.Tensor:
+    ax = torch.abs(x)
+    if beta <= 0:
+        return ax
+    return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) exactly, as `jax.nn.softplus`: `F.softplus` returns x
+    itself above its threshold of 20."""
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 class RPNHead(nn.Module):
@@ -129,3 +171,80 @@ def select_proposals(anchors: torch.Tensor, objectness: torch.Tensor,
                                          torch.full_like(scores, -torch.inf)),
                              keep, k)
     return gather_rows(boxes, idx), gather_rows(scores, idx), ok
+
+
+
+# -------------------------------------------------------------- training
+
+
+class RPNTargets(NamedTuple):
+    labels: torch.Tensor         # (..., N_anchors) 1 pos / 0 neg / -1 ignore
+    matched_boxes: torch.Tensor  # (..., N_anchors, 4)
+
+
+def label_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                  gt_valid: torch.Tensor, pos_iou: float, neg_iou: float
+                  ) -> RPNTargets:
+    """Anchor labelling: pos >= pos_iou or best-per-GT; neg < neg_iou.
+    anchors (N, 4); gt_boxes (..., M, 4), gt_valid (..., M)."""
+    iou = box2d_iou_matrix(anchors, gt_boxes)                 # (..., N, M)
+    iou = torch.where(gt_valid[..., None, :], iou, torch.full_like(iou, -1.0))
+    best_gt = torch.argmax(iou, -1)
+    best_iou = iou.amax(-1)
+    labels = torch.where(best_iou >= pos_iou, 1,
+                         torch.where(best_iou < neg_iou, 0, -1))
+    # Force the best anchor of each GT positive (ties included).
+    per_gt_best = iou.amax(-2, keepdim=True)                  # (..., 1, M)
+    is_best = ((iou == per_gt_best) & gt_valid[..., None, :]
+               & (per_gt_best > 0)).any(-1)
+    labels = torch.where(is_best, 1, labels)
+    matched = torch.gather(gt_boxes, -2, best_gt[..., None].expand(
+        best_gt.shape + (4,)))
+    return RPNTargets(labels, matched)
+
+
+def _rank_desc(score: torch.Tensor) -> torch.Tensor:
+    """Rank of each entry in a stable descending order (the JAX package's
+    stable `argsort(-score)`)."""
+    order = torch.argsort(-score, dim=-1, stable=True)
+    ranks = torch.empty_like(order)
+    return ranks.scatter_(-1, order, torch.arange(
+        score.shape[-1], device=score.device).expand_as(order))
+
+
+def subsample_labels(labels: torch.Tensor, rand: torch.Tensor,
+                     num_samples: int, positive_fraction: float):
+    """Random sampling to fixed counts via randomised top-k.  labels
+    (..., N); rand (..., N) uniform draws.  Returns (pos_sel, neg_sel)
+    bool masks with at most num_samples entries set in all."""
+    minus = torch.full_like(rand, -1.0)
+    num_pos = int(num_samples * positive_fraction)
+    pos_sel = (labels == 1) & (
+        _rank_desc(torch.where(labels == 1, rand, minus)) < num_pos)
+    num_neg = num_samples - pos_sel.sum(-1, keepdim=True)
+    neg_sel = (labels == 0) & (
+        _rank_desc(torch.where(labels == 0, rand, minus)) < num_neg)
+    return pos_sel, neg_sel
+
+
+def rpn_losses(objectness: torch.Tensor, deltas: torch.Tensor,
+               anchors: torch.Tensor, targets: RPNTargets,
+               rand: torch.Tensor, batch_per_image: int,
+               positive_fraction: float):
+    """Per-image RPN losses (objectness BCE + box L1), sampled, each
+    divided by the number of sampled anchors (detectron2).  objectness
+    (..., N), deltas (..., N, 4), rand (..., N).  Returns two (...,)
+    tensors."""
+    pos_sel, neg_sel = subsample_labels(targets.labels, rand,
+                                        batch_per_image, positive_fraction)
+    sel = (pos_sel | neg_sel).to(objectness.dtype)
+    norm = torch.clamp(sel.sum(-1), min=1.0)
+
+    y = (targets.labels == 1).to(objectness.dtype)
+    per_anchor = y * softplus(-objectness) + (1 - y) * softplus(objectness)
+    obj_loss = (per_anchor * sel).sum(-1) / norm
+
+    gt_deltas = encode_deltas(anchors, targets.matched_boxes)
+    box_l1 = smooth_l1(deltas - gt_deltas).sum(-1)
+    box_loss = (box_l1 * pos_sel.to(box_l1.dtype)).sum(-1) / norm
+    return obj_loss, box_loss

@@ -8,15 +8,21 @@ default reshape is the flax model's channels-last one; `torch_reshape=True`
 (with norm="affine", for imported reference weights) groups the
 channel-major flat index instead, as the reference's `view()` of an
 (N, C, 14, 14) tensor into (N, 196 C / 64, 4, 4, 4) does.
+
+`voxel_loss` is the reference's per-instance loop (max-IoU GT match,
+balanced BCE over the selected instances) as one masked batched op.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mot3d_tpu_torch.geometry.iou3d import voxel_iou
 from mot3d_tpu_torch.models.heads import conv_transpose
 from mot3d_tpu_torch.models.norms import make_norm, norm_name
+from mot3d_tpu_torch.models.rpn import softplus
 
 
 class Pix2VoxDecoder(nn.Module):
@@ -52,3 +58,29 @@ class Pix2VoxDecoder(nn.Module):
             vol = getattr(self, f"ConvTranspose_{i}")(vol)
             vol = F.relu(getattr(self, name)(vol))
         return self.ConvTranspose_4(vol)[:, 0]
+
+
+def voxel_loss(pred_logits: torch.Tensor, gt_voxels: torch.Tensor,
+               weights: torch.Tensor, loss_weight: float = 0.75):
+    """Balanced BCE over selected instances.
+
+    pred_logits, gt_voxels (N, 32, 32, 32); weights (N,) in {0, 1}.
+    pos_weight = #empty / #occupied over the selected GT voxels
+    (`Detection/utils/train_utils.py:18-31`).  Returns (loss, mean voxel IoU
+    of the selected instances)."""
+    wv = weights.to(pred_logits.dtype)
+    w = wv[:, None, None, None]
+    gt = gt_voxels.to(pred_logits.dtype)
+    occupied = (gt * w).sum()
+    total = wv.sum() * gt[0].numel()
+    pos_weight = torch.where(occupied > 0,
+                             (total - occupied) / torch.clamp(occupied,
+                                                              min=1.0),
+                             torch.ones_like(occupied))
+    per_vox = (pos_weight * gt * softplus(-pred_logits)
+               + (1.0 - gt) * softplus(pred_logits))
+    loss = (per_vox * w).sum() / torch.clamp(total, min=1.0)
+
+    ious = voxel_iou(torch.sigmoid(pred_logits), gt)
+    mean_iou = (ious * wv).sum() / torch.clamp(wv.sum(), min=1.0)
+    return loss * loss_weight, mean_iou

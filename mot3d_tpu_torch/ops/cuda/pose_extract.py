@@ -20,7 +20,12 @@ bilinear taps per sample instead of the plain version's gathers of whole
 tensors.
 
 `pose_extract` launches the kernel for a CUDA tensor and takes the plain
-version, `pose/extraction.py:grid_extract`, only for a CPU tensor.
+version, `pose/extraction.py:grid_extract`, only for a CPU tensor.  Either
+runs inside `ForwardOnly`, an autograd function whose backward raises: the
+kernel writes its outputs through raw pointers, so a gradient through it
+would otherwise be a silent zero.  The JAX package cannot differentiate its
+Pallas kernel either (`jax.grad` fails to linearise it), and the port's
+train steps refuse `pose.extraction="pallas"` when they are built.
 """
 
 from __future__ import annotations
@@ -45,6 +50,28 @@ def smem_bytes(p: int, grid: int) -> int:
     return 16 + 16 * p * p + 48 * grid + 25 * SAMPLES_PER_ROUND
 
 
+NO_GRADIENT = (
+    "pose_extract (the K2 kernel, pose.extraction='pallas') has no "
+    "gradient: the JAX package cannot differentiate its Pallas kernel "
+    "either.  Train with pose.extraction='grid'; a backward for the kernel "
+    "is ROADMAP.md Queue 1, item 'K2 backward'")
+
+
+class ForwardOnly(torch.autograd.Function):
+    """Runs `impl(*args)` -> (feats, valid) without recording its inside;
+    backward raises instead of returning a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, impl, *args):
+        feats, valid = impl(*args)
+        ctx.mark_non_differentiable(valid)
+        return feats, valid
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(NO_GRADIENT)
+
+
 def pose_extract(nocs: torch.Tensor, masks: torch.Tensor,
                  boxes: torch.Tensor, depth: torch.Tensor,
                  intrinsics: torch.Tensor, grid: int = 32,
@@ -56,10 +83,16 @@ def pose_extract(nocs: torch.Tensor, masks: torch.Tensor,
     s // (S // F)); intrinsics (3, 3).  All float32.  Same contract as
     `grid_extract`."""
     if nocs.device.type == "cpu":
-        return grid_extract(nocs, masks, boxes, depth, intrinsics, grid,
-                            mask_thresh)
+        return ForwardOnly.apply(grid_extract, nocs, masks, boxes, depth,
+                                 intrinsics, grid, mask_thresh)
     if nocs.device.type != "cuda":
         raise ValueError(f"pose_extract: unsupported device {nocs.device}")
+    return ForwardOnly.apply(_launch, nocs, masks, boxes, depth, intrinsics,
+                             grid, mask_thresh)
+
+
+def _launch(nocs, masks, boxes, depth, intrinsics, grid, mask_thresh):
+    """The K2 launch on CUDA tensors, after checking the contract."""
     s, p = nocs.shape[0], nocs.shape[1]
     if depth.dim() == 2:
         depth = depth[None]

@@ -1,5 +1,7 @@
 """ROIAlign over an FPN pyramid as two einsums (counterpart of
-`mot3d_tpu/ops/roi_align.py:multilevel_roi_align_packed`).
+`mot3d_tpu/ops/roi_align.py`: `multilevel_roi_align_packed`, its batched
+form, and the single-level `roi_align_matmul` that pools the training mask
+targets).
 
 Semantics are detectron2 ROIAlignV2 (aligned=True): half-pixel offset,
 `sampling_ratio` x `sampling_ratio` samples per output bin, average-pooled,
@@ -32,6 +34,26 @@ def _bilinear_weights(coord: torch.Tensor, size):
     zero = torch.zeros_like(w0)
     return (i0.long(), i1.long(), torch.where(valid, w0, zero),
             torch.where(valid, w1, zero))
+
+
+def roi_align_matmul(feature: torch.Tensor, boxes: torch.Tensor,
+                     output_size: int, spatial_scale: float = 1.0,
+                     sampling_ratio: int = 2) -> torch.Tensor:
+    """Single-level ROIAlignV2 as two separable weight matmuls: feature
+    (H, W, C) channels-last, boxes (N, 4) XYXY -> (N, out, out, C)."""
+    h, w, _ = feature.shape
+    b = boxes * spatial_scale - 0.5
+    zero = torch.zeros(b.shape[0], dtype=torch.long, device=b.device)
+
+    def weights(lo, hi, size):          # one map: size `size`, offset 0
+        return _packed_roi_weights(lo, hi, output_size, sampling_ratio,
+                                   torch.full_like(lo, float(size)), zero,
+                                   size)
+
+    ry = weights(b[:, 1], b[:, 3], h)                        # (N, out, H)
+    cx = weights(b[:, 0], b[:, 2], w)                        # (N, out, W)
+    rows = torch.einsum("nih,hwc->niwc", ry.to(feature.dtype), feature)
+    return torch.einsum("niwc,njw->nijc", rows, cx.to(rows.dtype))
 
 
 def _packed_roi_weights(lo, hi, out: int, s: int, sizes, offsets,
@@ -101,3 +123,19 @@ def multilevel_roi_align_packed(features: Sequence[torch.Tensor],
                              torch.zeros_like(yoff), w_max)
     t1 = torch.einsum("nph,chw->npwc", ry.to(packed.dtype), packed)
     return torch.einsum("npwc,nqw->npqc", t1, rx.to(t1.dtype))
+
+
+def multilevel_roi_align_batched_packed(features: Sequence[torch.Tensor],
+                                        boxes: torch.Tensor,
+                                        output_size: int,
+                                        strides: Sequence[int],
+                                        min_level: int = 2,
+                                        sampling_ratio: int = 2
+                                        ) -> torch.Tensor:
+    """A batch of images: features (B, C, H_l, W_l), boxes (B, N, 4) ->
+    (B, N, out, out, C), each image's boxes pooled from its own pyramid."""
+    return torch.stack([
+        multilevel_roi_align_packed([f[i] for f in features], boxes[i],
+                                    output_size, strides, min_level,
+                                    sampling_ratio)
+        for i in range(boxes.shape[0])])

@@ -136,3 +136,103 @@ def test_nms_sorted_kernel_matches_plain_at_path_shapes(q, k, thresh):
     assert torch.equal(got, k3.nms_sorted_plain(boxes, valid, thresh))
     with pytest.raises(TypeError):
         k3.nms_sorted(boxes.double(), valid, thresh)
+
+
+def test_knn_outlier_kernel_matches_plain_at_training_shapes():
+    """The combined step's K1 call: T * I = 2 x 16 = 32 rows of 1024
+    points, 256 candidates, k = 5; bit for bit."""
+    from mot3d_tpu_torch.geometry.outlier import candidate_columns
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(32, 1024, 3)).astype(np.float32) * 0.1
+    pts[:, :25] *= 30
+    valid = np.arange(1024)[None] < rng.integers(200, 1025, (32, 1))
+    pts, valid = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+    cols, k = candidate_columns(1024, 256, 20, dev)
+    assert k == 5
+    got = k1.knn_mean_dists(pts, valid, cols, k)
+    assert torch.equal(got, k1.knn_mean_dists_plain(pts, valid, cols, k))
+
+
+def test_pose_extract_backward_raises_on_the_card():
+    """K2 writes through raw pointers: its autograd function refuses a
+    gradient instead of returning a silent zero."""
+    from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    nocs = torch.from_numpy(rng.uniform(size=(4, 28, 28, 3)).astype(
+        np.float32)).to(dev).requires_grad_()
+    masks = torch.from_numpy(rng.uniform(size=(4, 28, 28)).astype(
+        np.float32)).to(dev)
+    boxes = torch.tensor([[10.0, 20, 80, 90]] * 4, device=dev)
+    depth = torch.from_numpy(rng.uniform(1, 3, (2, 120, 160)).astype(
+        np.float32)).to(dev)
+    intr = torch.tensor([[140.0, 0, 79.5], [0, 140.0, 59.5], [0, 0, 1]],
+                        device=dev)
+    before = k2.launches.count
+    feats, _ = k2.pose_extract(nocs, masks, boxes, depth, intr, 16)
+    assert k2.launches.count == before + 1 and feats.requires_grad
+    with pytest.raises(RuntimeError, match="K2 backward"):
+        feats.sum().backward()
+
+
+def test_tiny_combined_step_on_the_card():
+    """One combined train step at the tiny configuration on the card, gates
+    open: finite losses, K1 launched 4 times (twice in the window forward,
+    twice in its recomputation), both models updated."""
+    import dataclasses
+
+    from __graft_entry__ import _tiny_config
+    from mot3d_tpu_torch.data.samples import DetectionSample
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.train.combined_trainer import CombinedTrainer
+    from torch_port_helpers import port_config
+
+    dev = _cuda()
+    cfg = _tiny_config()
+    cfg = port_config(cfg.replace(
+        combined=dataclasses.replace(cfg.combined, objectness_thres=-1.0,
+                                     iou2d_thres=-1.0),
+        pose=dataclasses.replace(cfg.pose, min_inlier_ratio=0.0),
+        tracking=dataclasses.replace(cfg.tracking, box_iou_thres=0.0)))
+    det = cfg.detection
+    m, h = det.max_instances, det.pad_height
+    rng = np.random.default_rng(5)
+    frames = []
+    for f in range(2):
+        boxes = np.float32([[5, 5, 25, 30], [30, 10, 55, 35],
+                            [10, 35, 40, 60]])
+        masks = np.zeros((m, h, h), np.float32)
+        for j, (x0, y0, x1, y1) in enumerate(boxes.astype(int)):
+            masks[j, y0:y1, x0:x1] = 1.0
+        frames.append(DetectionSample(
+            image=rng.uniform(0, 255, (h, h, 3)).astype(np.float32),
+            depth=rng.uniform(1, 3, (h, h)).astype(np.float32),
+            campose=np.eye(4, dtype=np.float32), boxes=boxes,
+            classes=np.zeros(m, np.int32), valid=np.ones(m, bool),
+            masks=masks, voxels=(rng.uniform(size=(m, 32, 32, 32)) < 0.3
+                                 ).astype(np.float32),
+            nocs=rng.uniform(size=(m, 28, 28, 3)).astype(np.float32),
+            boxes3d=rng.normal(size=(m, 8, 3)).astype(np.float32),
+            object_ids=np.roll(np.arange(m, dtype=np.int32), f),
+            locations=np.zeros((m, 3), np.float32),
+            rotations=np.zeros((m, 3), np.float32),
+            scales3d=np.ones(m, np.float32)))
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        tr = CombinedTrainer(cfg, out)
+        with torch.no_grad():
+            tr.det_model.mask_head.Conv_4.bias.fill_(3.0)
+        before = [p.detach().clone() for p in (
+            tr.det_model.box_head.cls.weight,
+            tr.trk_model.edge_classifier.Dense_1.weight)]
+        k1.launches.reset()
+        metrics = tr.train(iter([frames]), max_iter=1)
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert k1.launches.count == 4
+    assert not torch.equal(before[0], tr.det_model.box_head.cls.weight)
+    assert not torch.equal(before[1],
+                           tr.trk_model.edge_classifier.Dense_1.weight)

@@ -24,7 +24,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, mot3d_tpu_torch, mot3d_tpu_torch.parallel.infer_step, "
             "mot3d_tpu_torch.importers.flax_params, "
             "mot3d_tpu_torch.tracking.tracker, "
-            "mot3d_tpu_torch.evaluator.edge_metrics; "
+            "mot3d_tpu_torch.evaluator.edge_metrics, "
+            "mot3d_tpu_torch.train.combined_trainer; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mot3d_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -96,6 +97,15 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         make_sequence_infer_step(None, trk, make_template(2, 2, 1), cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrackerModel(cfg.graph)
+    from mot3d_tpu_torch.parallel.train_step import (
+        make_combined_train_step, make_tracking_train_step)
+    from mot3d_tpu_torch.train.combined_trainer import CombinedTrainer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_combined_train_step(None, trk, make_template(2, 2, 1), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tracking_train_step(trk, make_template(2, 2, 1), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CombinedTrainer(cfg, "unused")
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():

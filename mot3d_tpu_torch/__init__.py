@@ -9,9 +9,12 @@ patches, (N, 32, 32, 32) voxels); channel-first permutes happen inside the
 modules.
 
 Entry points (`parallel.infer_step.make_sequence_infer_step`, the train
-steps of `parallel.train_step`, `train.combined_trainer.CombinedTrainer`
-and the model constructors) run on the GPU unless the caller passes
-`device="cpu"`.  The
+steps of `parallel.train_step`, the trainers of `train/`,
+`export.DetectorExporter`, `data.prefetch.device_prefetch`, the CLI
+`python -m mot3d_tpu_torch.cli` and the model constructors) run on the
+GPU unless the caller passes `device="cpu"` (`--device cpu`).  Host
+packages of the file readers and summaries (h5py, cv2, matplotlib, PIL,
+tensorboard) are imported inside the functions that use them.  The
 CUDA kernels under `ops/cuda/` are built from `csrc/` on their first use on
 a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch version.
 """

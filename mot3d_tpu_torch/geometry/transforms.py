@@ -140,3 +140,23 @@ def sort_bbox(corners: torch.Tensor) -> torch.Tensor:
                                asc(c[..., 2:4, 2]) + 2,
                                _argsort_desc(c[..., 4:6, 2]) + 4,
                                asc(c[..., 6:8, 2]) + 6], -1))
+
+
+def sort_bbox_np(corners) -> np.ndarray:
+    """NumPy `sort_bbox` of one (8, 3) box, for host-side data loading.
+
+    The 3D-IoU family reads boxes by canonical corner index (top face =
+    corners[0:4]), so corner order is semantic.  The reference sorts GT
+    boxes at crop time (`PoseEst/pose_estimation.py:194` run_crop_3dbbox);
+    dataset-raw `3Dbbox` corners arrive in arbitrary order and must be
+    canonicalised before any IoU (ROADMAP.md, "GT 3D-box corner order")."""
+    c = np.asarray(corners, np.float32)
+    c = c[np.flip(np.argsort(c[:, 1], kind="stable"))]
+    x1 = np.flip(np.argsort(c[0:4, 0], kind="stable"))
+    x2 = np.flip(np.argsort(c[4:8, 0], kind="stable")) + 4
+    c = c[np.concatenate([x1, x2])]
+    z1 = np.flip(np.argsort(c[0:2, 2], kind="stable"))
+    z2 = np.argsort(c[2:4, 2], kind="stable") + 2
+    z3 = np.flip(np.argsort(c[4:6, 2], kind="stable")) + 4
+    z4 = np.argsort(c[6:8, 2], kind="stable") + 6
+    return c[np.concatenate([z1, z2, z3, z4])]

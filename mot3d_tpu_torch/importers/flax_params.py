@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -148,3 +148,43 @@ def adamw_state_dict(opt_state: Mapping[str, Any], model: torch.nn.Module,
     sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
                        "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
     return sd
+
+
+def _adam_moments(opt_state) -> Optional[Mapping[str, Any]]:
+    """The `ScaleByAdamState` (mu, nu, count) inside an optax chain state
+    (nested tuples of NamedTuples, as numpy) as a dict."""
+    if all(hasattr(opt_state, k) for k in ("mu", "nu", "count")):
+        return {"mu": opt_state.mu, "nu": opt_state.nu,
+                "count": opt_state.count}
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_moments(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def import_train_state(jax_state, state) -> Any:
+    """A JAX trainer state -> the port's, in place: a
+    `DetectionTrainState` or `TrackingTrainState` of the JAX package
+    (params, optax AdamW state, step; as numpy, e.g. `jax.device_get` of
+    it) into the port's `DetectionTrainState` / `TrackingTrainState`
+    (model, torch AdamW, `LambdaLR`, step).  The model takes the params,
+    the optimizer the Adam moments and count, the scheduler the schedule's
+    position, so a JAX-started run continues in the port step for step.
+    Returns `state`."""
+    params, opt_state, step = jax_state
+    state.model.load_state_dict(flax_to_state_dict(params))
+    adam = _adam_moments(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (mu, nu, count) found")
+    state.optimizer.load_state_dict(
+        adamw_state_dict(adam, state.model, state.optimizer))
+    count = int(adam["count"])
+    sched = state.scheduler
+    sched.last_epoch = count
+    for group, base, fn in zip(state.optimizer.param_groups, sched.base_lrs,
+                               sched.lr_lambdas):
+        group["lr"] = base * fn(count)
+    state.step = int(step)
+    return state

@@ -406,6 +406,21 @@ class MaskRCNN(nn.Module):
             voxels.reshape((b, d) + voxels.shape[1:]),
             nocs.reshape((b, d) + nocs.shape[1:]))
 
+    @torch.no_grad()
+    def predict_given_boxes(self, images, boxes, classes):
+        """Mask, voxel and NOCS heads on externally supplied boxes
+        (forward_with_given_boxes_voxnocs, `roi_heads.py:116-135`):
+        images (B, H, W, 3), boxes (B, D, 4), classes (B, D) ->
+        (masks, voxels, nocs) with leading (B, D)."""
+        feats = self.features(images)
+        b, d = boxes.shape[:2]
+        pooled14 = multilevel_roi_align_batched_packed(
+            feats[:4], boxes, self.cfg.mask_pooler_resolution, STRIDES)
+        outs = self.dense_heads(
+            pooled14.reshape((b * d,) + pooled14.shape[2:]),
+            classes.reshape(-1))
+        return tuple(x.reshape((b, d) + x.shape[1:]) for x in outs)
+
     def dense_heads(self, pooled14, classes):
         """Mask, voxel and NOCS heads on (N, 14, 14, C) pooled features."""
         c = self.cfg

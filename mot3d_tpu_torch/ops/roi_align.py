@@ -36,12 +36,10 @@ def _bilinear_weights(coord: torch.Tensor, size):
             torch.where(valid, w1, zero))
 
 
-def roi_align_matmul(feature: torch.Tensor, boxes: torch.Tensor,
-                     output_size: int, spatial_scale: float = 1.0,
-                     sampling_ratio: int = 2) -> torch.Tensor:
-    """Single-level ROIAlignV2 as two separable weight matmuls: feature
-    (H, W, C) channels-last, boxes (N, 4) XYXY -> (N, out, out, C)."""
-    h, w, _ = feature.shape
+def _map_weights(boxes: torch.Tensor, output_size: int, h: int, w: int,
+                 spatial_scale: float, sampling_ratio: int):
+    """Per-axis ROIAlignV2 weights of boxes (N, 4) on one (h, w) map:
+    rows (N, out, h) and columns (N, out, w)."""
     b = boxes * spatial_scale - 0.5
     zero = torch.zeros(b.shape[0], dtype=torch.long, device=b.device)
 
@@ -50,10 +48,31 @@ def roi_align_matmul(feature: torch.Tensor, boxes: torch.Tensor,
                                    torch.full_like(lo, float(size)), zero,
                                    size)
 
-    ry = weights(b[:, 1], b[:, 3], h)                        # (N, out, H)
-    cx = weights(b[:, 0], b[:, 2], w)                        # (N, out, W)
+    return weights(b[:, 1], b[:, 3], h), weights(b[:, 0], b[:, 2], w)
+
+
+def roi_align_matmul(feature: torch.Tensor, boxes: torch.Tensor,
+                     output_size: int, spatial_scale: float = 1.0,
+                     sampling_ratio: int = 2) -> torch.Tensor:
+    """Single-level ROIAlignV2 as two separable weight matmuls: feature
+    (H, W, C) channels-last, boxes (N, 4) XYXY -> (N, out, out, C)."""
+    h, w, _ = feature.shape
+    ry, cx = _map_weights(boxes, output_size, h, w, spatial_scale,
+                          sampling_ratio)
     rows = torch.einsum("nih,hwc->niwc", ry.to(feature.dtype), feature)
     return torch.einsum("niwc,njw->nijc", rows, cx.to(rows.dtype))
+
+
+def roi_align_own_map(maps: torch.Tensor, boxes: torch.Tensor,
+                      output_size: int, sampling_ratio: int = 2
+                      ) -> torch.Tensor:
+    """Box i pools map i only: maps (N, H, W), boxes (N, 4) XYXY ->
+    (N, out, out), the diagonal of `roi_align_matmul` over the channels
+    (the exporter's GT masks as oracle 28 x 28 mask probabilities)."""
+    h, w = maps.shape[-2:]
+    ry, cx = _map_weights(boxes, output_size, h, w, 1.0, sampling_ratio)
+    rows = torch.einsum("nih,nhw->niw", ry.to(maps.dtype), maps)
+    return torch.einsum("niw,njw->nij", rows, cx.to(rows.dtype))
 
 
 def _packed_roi_weights(lo, hi, out: int, s: int, sizes, offsets,

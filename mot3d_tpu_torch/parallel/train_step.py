@@ -65,21 +65,41 @@ def _zero_missing_grads(params) -> None:
             p.grad = torch.zeros_like(p)
 
 
-def _update(model, optimizer, scheduler) -> None:
+def update(model, optimizer, scheduler) -> None:
+    """One optimizer step over every parameter (a missing gradient counts
+    as zero, as in optax) and one schedule step."""
     _zero_missing_grads(model.parameters())
     optimizer.step()
     scheduler.step()
 
 
-# ------------------------------------------------------------- tracking
-
-
 @dataclasses.dataclass
-class TrackingTrainState:
-    model: TrackerModel
+class ModelTrainState:
+    """One model, its optimizer and LR scheduler, and the count of updates
+    made; `state_dict` is what a checkpoint holds."""
+
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Any            # torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "step": int(self.step)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for name in ("model", "optimizer", "scheduler"):
+            getattr(self, name).load_state_dict(sd[name])
+        self.step = int(sd["step"])
+
+
+# ------------------------------------------------------------- tracking
+
+
+class TrackingTrainState(ModelTrainState):
+    """The tracker's train state."""
 
 
 class TrackingBatch(NamedTuple):
@@ -127,7 +147,7 @@ def make_tracking_train_step(model: TrackerModel, template: GraphTemplate,
             seq_loss(TrackingBatch(*(x[b] for x in batch)))
             for b in range(batch.det_valid.shape[0])]).mean()
         loss.backward()
-        _update(state.model, state.optimizer, state.scheduler)
+        update(state.model, state.optimizer, state.scheduler)
         state.step += 1
         return state, {"tracking_loss": loss.detach()}
 
@@ -335,8 +355,8 @@ def make_combined_train_step(det_model: MaskRCNN, trk_model: TrackerModel,
                    for k in auxes[0][2]}
         metrics["tracking_loss"] = trk_total
         metrics["detection_total"] = det_total
-        _update(state.det_model, state.det_opt, state.det_sched)
-        _update(state.trk_model, state.trk_opt, state.trk_sched)
+        update(state.det_model, state.det_opt, state.det_sched)
+        update(state.trk_model, state.trk_opt, state.trk_sched)
         state.step += 1
         return state, metrics
 

@@ -29,10 +29,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from mot3d_tpu_torch.config import Config
+from mot3d_tpu_torch.geometry.backproject import backproject_depth
 from mot3d_tpu_torch.geometry.iou3d import box2d_iou_matrix
 from mot3d_tpu_torch.geometry.outlier import statistical_outlier_mask
 from mot3d_tpu_torch.geometry.transforms import (aabb_corners, cam_to_world,
-                                                 rotmat_to_euler)
+                                                 canonical_signs,
+                                                 rotmat_to_euler, sort_bbox)
 from mot3d_tpu_torch.geometry.umeyama import (estimate_similarity_transform,
                                               make_draws)
 from mot3d_tpu_torch.ops.cuda.pose_extract import pose_extract
@@ -62,6 +64,59 @@ class FrameDetections(NamedTuple):
     objectness: torch.Tensor    # (F, I)
 
 
+def _scale_weights(size_in: int, size_out: int, scale: torch.Tensor,
+                   translation: torch.Tensor) -> torch.Tensor:
+    """One axis of `jax.image.scale_and_translate(method="linear")` with its
+    default anti-aliasing: (..., size_in, size_out) triangle-kernel weights.
+    Where the box is smaller than the patch (scale < 1) the kernel widens
+    by 1 / scale, so a plain bilinear resample differs on small boxes.
+    Each output column is normalised to sum 1 (0 where the sum is ~0) and
+    zeroed where its sample lies outside the input."""
+    dt = scale.dtype
+    inv = 1.0 / scale[..., None, None]
+    kernel_scale = torch.clamp(inv, min=1.0)
+    out_idx = torch.arange(size_out, dtype=dt, device=scale.device)
+    in_idx = torch.arange(size_in, dtype=dt, device=scale.device)[:, None]
+    sample = ((out_idx + 0.5) * inv - translation[..., None, None] * inv
+              - 0.5)                                   # (..., 1, out)
+    w = torch.clamp(1.0 - (sample - in_idx).abs() / kernel_scale, min=0.0)
+    total = w.sum(-2, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
+    return torch.where(inside, w, torch.zeros_like(w))
+
+
+@strict_fp32()
+def paste_patch(patch: torch.Tensor, box_xyxy: torch.Tensor,
+                out_hw) -> torch.Tensor:
+    """Resample (..., g, g, C) patches over their image boxes (..., 4) onto
+    the full (..., H, W, C) image: `jax.image.scale_and_translate` with the
+    linear method, as two small weight matrices per patch (one per axis).
+    Outside the box the output is zero.  At an integer box edge the column
+    just past the box samples exactly the patch's border, where rounding
+    decides whether it is kept (jitted and eager JAX disagree there)."""
+    h, w = out_hw
+    g = patch.shape[-3]
+    bw = torch.clamp(box_xyxy[..., 2] - box_xyxy[..., 0], min=1e-6)
+    bh = torch.clamp(box_xyxy[..., 3] - box_xyxy[..., 1], min=1e-6)
+    wy = _scale_weights(g, h, bh / g, box_xyxy[..., 1] + 0.5)
+    wx = _scale_weights(g, w, bw / g, box_xyxy[..., 0] + 0.5)
+    rows = torch.einsum("...ijc,...iy->...yjc", patch, wy.to(patch.dtype))
+    return torch.einsum("...yjc,...jx->...yxc", rows, wx.to(patch.dtype))
+
+
+def _box_interior_mask(shape, box_xyxy: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) pixels inside the floored box (..., 4)."""
+    h, w = shape
+    ys = torch.arange(h, dtype=box_xyxy.dtype, device=box_xyxy.device)
+    xs = torch.arange(w, dtype=box_xyxy.dtype, device=box_xyxy.device)
+    bx = torch.floor(box_xyxy)[..., None, None, :]
+    return ((ys[:, None] >= bx[..., 1]) & (ys[:, None] < bx[..., 3])
+            & (xs[None, :] >= bx[..., 0]) & (xs[None, :] < bx[..., 2]))
+
+
 def _masked_aabb(points: torch.Tensor, valid: torch.Tensor):
     inf = torch.full_like(points, torch.inf)
     mins = torch.where(valid[..., None], points, inf).amin(-2)
@@ -69,6 +124,35 @@ def _masked_aabb(points: torch.Tensor, valid: torch.Tensor):
     ok = valid.any(-1)[..., None]
     return (torch.where(ok, mins, torch.zeros_like(mins)),
             torch.where(ok, maxs, torch.zeros_like(maxs)))
+
+
+@strict_fp32()
+def crop_gt_box3d(depth, campose, intrinsics, gt_box3d, gt_box2d, gt_mask,
+                  clean_min_points: int = 1) -> torch.Tensor:
+    """Crop GT world-space 3D boxes to their depth-visible extent.
+
+    Mirrors `run_crop_3dbbox` + `crop_gt_bbox` (`pose_estimation.py:
+    136-243`): backproject the masked depth inside the GT 2D box, keep the
+    points inside the GT 3D box's AABB, and clamp each canonical corner to
+    the visible extent (plus-signed components min'd with the max,
+    minus-signed max'd with the min).  The sorted box itself where fewer
+    than `clean_min_points` points are visible.  depth (H, W), campose
+    (4, 4), gt_box3d (..., 8, 3), gt_box2d (..., 4), gt_mask (..., H, W)
+    -> (..., 8, 3)."""
+    box = sort_bbox(gt_box3d)
+    interior = _box_interior_mask(depth.shape[-2:], gt_box2d)
+    pts, valid = backproject_depth(depth * interior, intrinsics, gt_mask)
+    world = cam_to_world(pts.flatten(-3, -2), campose)
+    flat_valid = valid.flatten(-2)
+    inside = ((world > box.amin(-2)[..., None, :])
+              & (world < box.amax(-2)[..., None, :])).all(-1)
+    keep = flat_valid & inside
+    dmin, dmax = _masked_aabb(world, keep)
+    cropped = torch.where(canonical_signs(box) > 0,
+                          torch.minimum(box, dmax[..., None, :]),
+                          torch.maximum(box, dmin[..., None, :]))
+    ok = keep.sum(-1) >= clean_min_points
+    return torch.where(ok[..., None, None], cropped, box)
 
 
 @strict_fp32()

@@ -236,3 +236,48 @@ def test_tiny_combined_step_on_the_card():
     assert not torch.equal(before[0], tr.det_model.box_head.cls.weight)
     assert not torch.equal(before[1],
                            tr.trk_model.edge_classifier.Dense_1.weight)
+
+
+def test_oracle_export_frame_on_the_card_matches_the_cpu():
+    """One fixture frame through `DetectorExporter.export_frame` in oracle
+    mode on the card and on the CPU with the same draws, in both extraction
+    modes: the same kept slots and classes, poses within 1e-3 (float32
+    fits: the card sums in another order), K1 twice per frame and K2 once
+    with pose.extraction='pallas' (0 times at 'grid')."""
+    import dataclasses
+
+    from __graft_entry__ import _tiny_config
+    from mot3d_tpu_torch.data.fixtures import (fixture_samples,
+                                               render_motfront_scenes)
+    from mot3d_tpu_torch.export import DetectorExporter
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from torch_port_helpers import port_config
+
+    dev = _cuda()
+    cfg = port_config(_tiny_config())
+    (sample,), = fixture_samples(render_motfront_scenes(
+        1, 1, 3, 1, cfg.camera, camera_dist=2.6, half_range=(0.35, 0.6)),
+        cfg.detection)
+    draws = torch.randint(0, 2**31 - 1, (cfg.detection.max_instances,
+                                         cfg.pose.ransac_iters,
+                                         cfg.pose.ransac_sample_size),
+                          generator=torch.Generator().manual_seed(0))
+    for mode in ("grid", "pallas"):
+        c = cfg.replace(pose=dataclasses.replace(cfg.pose, extraction=mode))
+        frames = {}
+        for d in ("cpu", dev):
+            ex = DetectorExporter(c, MaskRCNN(c.detection, device=d), d)
+            k1.launches.reset()
+            k2.launches.reset()
+            m = ex.export_frame(sample, None, draws, oracle=True)
+            frames[str(d)] = (m, ex.last_frame,
+                              k1.launches.count, k2.launches.count)
+        (m_c, f_c, _, _), (m_g, f_g, n1, n2) = frames["cpu"], frames["cuda"]
+        assert m_g["classes"] == m_c["classes"] and len(m_g["classes"]) >= 2
+        assert (n1, n2) == (2, 1 if mode == "pallas" else 0)
+        for name in ("rotations", "translations", "scales", "pred_boxes"):
+            np.testing.assert_allclose(getattr(f_g, name),
+                                       getattr(f_c, name), atol=1e-3,
+                                       err_msg=name)

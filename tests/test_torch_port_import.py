@@ -1,7 +1,8 @@
-"""The port stands alone: importing it pulls in neither JAX nor flax, no file
-of it (nor chip_smoke.py) imports jax, flax or mot3d_tpu, its config is a
-faithful copy, and its entry points default to the GPU and refuse to run
-without one."""
+"""The port stands alone: importing it pulls in neither JAX nor flax (nor
+the host packages of its file readers and summaries: h5py, cv2,
+matplotlib, pandas), no file of it (nor chip_smoke.py) imports jax, flax or
+mot3d_tpu, its config is a faithful copy, and its entry points default to
+the GPU and refuse to run without one."""
 
 import ast
 import dataclasses
@@ -20,14 +21,19 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "mot3d_tpu"}
 
 
+HOST_PACKAGES = ("h5py", "cv2", "matplotlib", "pandas", "tensorboard", "PIL")
+
+
 def test_import_pulls_in_no_jax():
-    code = ("import sys, mot3d_tpu_torch, mot3d_tpu_torch.parallel.infer_step, "
-            "mot3d_tpu_torch.importers.flax_params, "
-            "mot3d_tpu_torch.tracking.tracker, "
-            "mot3d_tpu_torch.evaluator.edge_metrics, "
-            "mot3d_tpu_torch.train.combined_trainer; "
+    """Every module of the port imported: no JAX, no flax, no mot3d_tpu,
+    and none of the host packages its readers, writers and summaries import
+    inside their functions."""
+    code = ("import sys, pkgutil, importlib, mot3d_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "mot3d_tpu_torch.__path__, 'mot3d_tpu_torch.')]; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mot3d_tpu')); "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mot3d_tpu') "
+            f"+ {HOST_PACKAGES!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -106,6 +112,41 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         make_tracking_train_step(trk, make_template(2, 2, 1), cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CombinedTrainer(cfg, "unused")
+
+
+def test_workflow_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
+    """The trainers, the exporter, the prefetcher and the CLI raise without
+    a GPU unless asked for the CPU; with device='cpu' they are built."""
+    from mot3d_tpu_torch import cli
+    from mot3d_tpu_torch.data.prefetch import device_prefetch
+    from mot3d_tpu_torch.export import DetectorExporter
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.train.detection_trainer import DetectionTrainer
+    from mot3d_tpu_torch.train.tracking_trainer import TrackingTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = cfg_t.Config()
+    for build in (lambda d: DetectionTrainer(cfg, str(tmp_path / "d"), d),
+                  lambda d: TrackingTrainer(cfg, str(tmp_path / "t"), d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(None)
+    TrackingTrainer(cfg, str(tmp_path / "t"), "cpu")
+    det = MaskRCNN(cfg.detection, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DetectorExporter(cfg, det)
+    assert DetectorExporter(cfg, det, "cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(device_prefetch(iter([np.zeros(2)])))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["export-detections", "--data", str(tmp_path), "--out",
+                  str(tmp_path / "h5")])
+    res = subprocess.run(
+        [sys.executable, "-c", "import torch, runpy, sys; "
+         "torch.cuda.is_available = lambda: False; sys.argv = ["
+         "'cli', 'infer-tracking', '--data', 'x', '--ckpt', 'y']; "
+         "runpy.run_module('mot3d_tpu_torch.cli', run_name='__main__')"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "device='cpu'" in res.stderr
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():

@@ -37,7 +37,8 @@ Phases, one JSON line each; any failure exits non-zero:
      compare their frames/s inside one process;
  11. combined training at full width through `CombinedTrainer.train`
      (windows of 2 frames of a synthetic sequence with masks, voxels and
-     NOCS ramps; gates open): 3 warm-up and 10 timed steps (median ms per
+     NOCS ramps; gates open): 3 warm-up and 10 timed steps under
+     deterministic algorithms, so every run trains alike (median ms per
      step, peak memory, K1 launches per step, finite losses, a non-zero
      tracking loss, both models updated), one step under the profiler, K1
      on the training path's own inputs against its plain version, the
@@ -55,9 +56,24 @@ Phases, one JSON line each; any failure exits non-zero:
      against CPU on two frames, `TrackingTrainer` on the oracle exports
      (the loss falls) and inference from the best-MOTA checkpoint against
      the CPU's MOTA, the CLI in a subprocess (when h5py is there), K1 and
-     K2 bit-equal on one exported frame's inputs;
-then the kernels line (with each kernel's launches on the training path
-and in the workflow), the nvidia-smi line and the final status line.
+     K2 bit-equal on one exported frame's inputs (and `--export-vis`
+     writing each sequence's replay page);
+ 13. the reference's weights (`reference_weights`): a random import-mode
+     detector at full width exported to a detectron2 .pth and imported by
+     `import-torch-ckpt` (every tensor bit-equal to the source), the
+     evaluation path of phase 9 on three sequences with the source and the
+     imported model (outputs and MOTA bit-equal; K3 6 and K1 2 launches per
+     sequence), a COCO-zoo-like dict refused strict and imported partial;
+     random trackers without and with time-aware message passing through
+     the reference's three .pth files (bit-equal logits on the workflow's
+     exported sequences), inference with `export_dir` (replay page and
+     PLYs per sequence) and posed-shape OBJs; `SiameseTrainer` in four
+     setups (default, no_pose, use_triplet, use_triplet on precomputed
+     features): ms per step, first and last epoch loss, MOTA, card against
+     CPU MOTA on one sequence, inference with `export_dir`;
+then the kernels line (with each kernel's launches on the training path,
+in the workflow and on the reference-weights path), the nvidia-smi line
+and the final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
 With --kernels-only it stops after phase 4: copied into another checkout
@@ -67,6 +83,7 @@ and run from there, it times that checkout's K1 and K2 the same way.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -127,6 +144,21 @@ def bound_ms(ops: float, nbytes: float):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms (warn-only), for work whose
+    result two runs must share: `index_add_` (the MPN's segment sums) and
+    cuDNN's default algorithms otherwise add with atomics on the card, in
+    an order that changes from call to call."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
 # ------------------------------------------------------------------ phases
@@ -722,7 +754,7 @@ def phase_eval(seed, cfg, trk, template, seqs, draws, dev):
     exact NMS -> pose -> graph -> MPN -> host assembly -> MOTA."""
     from mot3d_tpu_torch.evaluator.edge_metrics import \
         edge_precision_recall_f1
-    from mot3d_tpu_torch.importers.flax_params import import_config
+    from mot3d_tpu_torch.importers.torch_ckpt import import_config
     from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
     from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
     from mot3d_tpu_torch.ops.cuda import nms as k3
@@ -978,7 +1010,8 @@ def _profile_train_step(tr, window, top=12, shapes=False):
 def phase_train(seed, cfg, dev, warmup=3, timed=10):
     """End-to-end combined training at full width through
     `CombinedTrainer.train`: windows of combined.batch_size = 2 frames,
-    detached pose, joint_grad, remat (the trainer's defaults), open gates;
+    detached pose, joint_grad, remat (the trainer's defaults), open gates,
+    the warm-up and timed steps under deterministic algorithms;
     then one step at the untouched default config, the differentiable pose
     (the NOCS head's gradient from the tracking loss alone), K1 on the
     training path's own inputs against its plain version, and a
@@ -1011,25 +1044,32 @@ def phase_train(seed, cfg, dev, warmup=3, timed=10):
     torch.manual_seed(seed)
     tr = _trainer(cfg_o, f"{work}/open", dev)
     det0, trk0 = _params(tr.det_model), _params(tr.trk_model)
-    tr.train(iter(windows[:warmup]), max_iter=warmup)
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, k1_per_step, losses = [], [], []
-    for w in windows[warmup:warmup + timed]:
-        k1.launches.reset()
-        k2.launches.reset()
-        k3.launches.reset()
+    # The warm-up and timed steps run under deterministic algorithms, so
+    # every run trains the same weights: with atomics (cuDNN's default
+    # algorithms, `index_add_`) a random-weight detector drifts from run to
+    # run, and one window of ten lost every valid fit (its tracking loss 0)
+    # in 2 of 7 runs on the card.
+    with _deterministic():
+        tr.train(iter(windows[:warmup]), max_iter=warmup)
         sync()
-        t0 = time.perf_counter()
-        metrics = tr.train(iter([w]), max_iter=tr.state.step + 1)
-        sync()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        k1_per_step.append(k1.launches.count)
-        check(k2.launches.count == 0 and k3.launches.count == 0,
-              "train: K2 or K3 launched at the default extraction and NMS")
-        check(all(np.isfinite(v) for v in metrics.values()),
-              f"train: non-finite losses {metrics}")
-        losses.append(metrics)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, k1_per_step, losses = [], [], []
+        for w in windows[warmup:warmup + timed]:
+            k1.launches.reset()
+            k2.launches.reset()
+            k3.launches.reset()
+            sync()
+            t0 = time.perf_counter()
+            metrics = tr.train(iter([w]), max_iter=tr.state.step + 1)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            k1_per_step.append(k1.launches.count)
+            check(k2.launches.count == 0 and k3.launches.count == 0,
+                  "train: K2 or K3 launched at the default extraction and "
+                  "NMS")
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f"train: non-finite losses {metrics}")
+            losses.append(metrics)
     peak = torch.cuda.max_memory_allocated()
     # Remat recomputes the window forward in the backward: K1 runs twice
     # in the forward (depth cloud, NOCS cloud) and twice again there.
@@ -1084,15 +1124,25 @@ def phase_train(seed, cfg, dev, warmup=3, timed=10):
                          "valid_points": int(val.sum()),
                          "max_abs_err": err})
 
-    # The differentiable pose: d(tracking loss)/d(NOCS head), on one window.
+    # The differentiable pose: d(tracking loss)/d(NOCS head), on the last
+    # window whose tracking loss is not 0.  (Training runs at cuDNN's
+    # non-deterministic algorithms, so the trained detector differs from run
+    # to run; when no fit of a window is valid its graph has no valid edge,
+    # its loss is 0 and has no gradient in any mode.)
     nocs_params = list(tr.det_model.nocs_head.parameters())
-    grad_abs = {}
+    grad_abs, tracking_loss = {}, {}
+    for grad_window in range(len(windows) - 1, -1, -1):
+        win = samples_to_combined_window(windows[grad_window])
+        with torch.no_grad():
+            if float(step_d.window_forward(win, one)[1]) > 0:
+                break
     for diff in (False, True):
         cfg_x = cfg_o.replace(pose=dataclasses.replace(cfg_o.pose,
                                                        differentiable=diff))
         step_x = make_combined_train_step(tr.det_model, tr.trk_model, tmpl,
                                           cfg_x, device=dev)
         _, tl = step_x.window_forward(win, one)
+        tracking_loss[diff] = float(tl.detach())
         grads = torch.autograd.grad(tl, nocs_params, allow_unused=True)
         vals = [float(g.abs().sum()) for g in grads if g is not None]
         check(all(np.isfinite(v) for v in vals),
@@ -1101,7 +1151,8 @@ def phase_train(seed, cfg, dev, warmup=3, timed=10):
     check(grad_abs[False] == 0.0,
           f"train: detached pose leaks {grad_abs[False]} into the NOCS head")
     check(grad_abs[True] > 0.0,
-          "train: no gradient from the tracking loss into the NOCS head")
+          "train: no gradient from the tracking loss into the NOCS head "
+          f"(tracking loss {tracking_loss})")
     # ... and one update with it.
     step_x(tr.state, CombinedBatch(*(x[None] for x in win)), generator=gen)
     check(all(bool(torch.isfinite(p).all())
@@ -1146,7 +1197,9 @@ def phase_train(seed, cfg, dev, warmup=3, timed=10):
            "profile_cudnn_deterministic": profile_det,
            "k1_training_inputs": k1_train,
            "nocs_head_grad_abs_sum": {"detached": grad_abs[False],
-                                      "differentiable": grad_abs[True]},
+                                      "differentiable": grad_abs[True],
+                                      "window": grad_window,
+                                      "tracking_loss": tracking_loss[True]},
            "default_config_step": m_default,
            "checkpoint": {"saved_step": saved_step, "restored": True,
                           "next_step_metrics": m_after}}
@@ -1503,11 +1556,10 @@ def phase_workflow(seed, cfg, dev, warmup=3, timed=10, epochs=8):
         sync()
         if name == "card":
             infer_s = time.perf_counter() - t
-            try:
-                ti.inference(seqs["test"], export_dir=f"{work}/vis")
-                raise SystemExit("chip_smoke: FAILED: --export-vis ran")
-            except NotImplementedError:
-                pass
+            ti.inference(seqs["test"], export_dir=f"{work}/vis")
+            check(all(os.path.exists(f"{work}/vis/seq_{i:03d}/replay.html")
+                      for i in range(len(seqs["test"]))),
+                  "workflow: --export-vis wrote no replay.html")
     mota, mota_cpu = infer["card"]["mota"], infer["cpu"]["mota"]
     check(np.isfinite(mota) and np.isfinite(infer["card"]["idf1"]),
           "workflow: non-finite MOTA or IDF1")
@@ -1592,7 +1644,331 @@ def phase_workflow(seed, cfg, dev, warmup=3, timed=10, epochs=8):
     device_ms = {"knn_outlier": float(np.mean(
         [r["device_ms"] for r in kernels["knn_outlier"]])),
         "pose_extract": kernels["pose_extract"][0]["device_ms"], "nms": None}
-    return workflow_launches, device_ms
+    return workflow_launches, device_ms, seqs
+
+
+# ------------------------------------------------- the reference's weights
+
+SIAMESE_SETUPS = {"default": {}, "no_pose": {"no_pose": True},
+                  "use_triplet": {"use_triplet": True},
+                  "use_triplet_precompute": {"use_triplet": True}}
+
+
+def _same_tensors(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k].cpu(), b[k].cpu())
+        for k in a)
+
+
+def _reference_detector(seed, cfg, trk, template, seqs, draws, work, dev):
+    """A random import-mode detector at full width -> detectron2 .pth ->
+    `import-torch-ckpt` -> the port's checkpoint -> the evaluation path
+    with the source and the imported model; then a COCO-zoo-like dict
+    without voxel and NOCS heads, refused strict, imported partial."""
+    from mot3d_tpu_torch import cli
+    from mot3d_tpu_torch.importers.torch_ckpt import import_config
+    from mot3d_tpu_torch.importers.torch_export import (
+        export_detectron2_maskrcnn, save_torch_state_dict)
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+    from mot3d_tpu_torch.parallel.infer_step import (make_sequence_infer_step,
+                                                     outputs_to_host)
+    from mot3d_tpu_torch.tracking.tracker import Tracker
+
+    det_c = dataclasses.replace(import_config(cfg.detection), fast_nms=False)
+    cfg_e = cfg.replace(detection=det_c)
+    torch.manual_seed(seed + 3)
+    src = MaskRCNN(det_c, device=dev)
+    _randomise_affine(src, seed + 3)
+    with torch.no_grad():       # the reference's voxel decoder is bias-free
+        for name, prm in src.voxel_head.named_parameters():
+            if name.endswith("bias") and name.startswith("ConvTranspose_"):
+                prm.zero_()
+    res = {}
+    t0 = time.perf_counter()
+    d2 = export_detectron2_maskrcnn(src.state_dict(), det_c)
+    pth = f"{work}/model_final.pth"
+    save_torch_state_dict(pth, d2)
+    res["export_s"] = time.perf_counter() - t0
+    res["pth_bytes"] = os.path.getsize(pth)
+    t0 = time.perf_counter()
+    cli.main(["import-torch-ckpt", "--pth", pth, "--out", f"{work}/det",
+              "--device", str(dev)])
+    res["import_s"] = time.perf_counter() - t0
+    imported = cli._init_detector(cfg_e, f"{work}/det", dev)
+    check(_same_tensors(imported.state_dict(), src.state_dict()),
+          "reference_weights: the imported detector differs from its source")
+
+    tracker = Tracker(cfg.tracking)
+    e = len(template.src_frame)
+    outs, launches, motas = {}, {}, {}
+    for name, model in (("source", src), ("imported", imported)):
+        step = make_sequence_infer_step(model, trk, template, cfg_e,
+                                        device=dev)
+        step(_batch(seqs, 0), draws=draws[0])       # warm-up
+        sync()
+        k1.launches.reset()
+        k3.launches.reset()
+        t0 = time.perf_counter()
+        with _deterministic():
+            outs[name] = [outputs_to_host(step(_batch(seqs, q),
+                                               draws=draws[q]))
+                          for q in (1, 2, 3)]
+        sync()
+        res[f"{name}_eval_s"] = time.perf_counter() - t0
+        launches[name] = {"knn_outlier": k1.launches.count,
+                          "nms": k3.launches.count}
+        summaries = []
+        for q, out in zip((1, 2, 3), outs[name]):
+            pred = tracker.assemble(template, out.edge_probs[0, :e],
+                                    out.obj_ids[0], out.valid[0],
+                                    out.translations[0], out.classes[0])
+            summaries.append(tracker.evaluate(pred,
+                                              _gt_tracks(tracker, seqs[q])))
+        motas[name] = [s["mota"] for s in summaries]
+    check(launches["imported"] == {"knn_outlier": 2 * 3, "nms": 6 * 3},
+          f"reference_weights: launches on the imported evaluation path "
+          f"{launches['imported']}, expected K1 6 and K3 18")
+    for a, b in zip(outs["source"], outs["imported"]):
+        for field, x, y in zip(a._fields, a, b):
+            check(np.array_equal(x, y),
+                  f"reference_weights: {field} of the imported detector's "
+                  "evaluation path differs from the source's")
+    check(motas["source"] == motas["imported"]
+          and all(np.isfinite(motas["imported"])),
+          f"reference_weights: MOTA {motas}")
+
+    # A COCO-zoo-like checkpoint: no voxel and no NOCS head.
+    zoo = f"{work}/coco_zoo.pth"
+    save_torch_state_dict(zoo, export_detectron2_maskrcnn(
+        src.state_dict(), det_c,
+        sections=("backbone", "rpn_head", "box_head", "mask_head")))
+    try:
+        cli.main(["import-torch-ckpt", "--pth", zoo, "--out",
+                  f"{work}/zoo_strict", "--device", str(dev)])
+        raise SystemExit("chip_smoke: FAILED: the strict import took a "
+                         "checkpoint without voxel and NOCS heads")
+    except KeyError as err:
+        refused = str(err)
+    cli.main(["import-torch-ckpt", "--pth", zoo, "--allow-partial", "--out",
+              f"{work}/zoo", "--device", str(dev)])
+    partial = cli._init_detector(cfg_e, f"{work}/zoo", dev).state_dict()
+    ssd = src.state_dict()
+    check(all(torch.equal(partial[k], ssd[k]) for k in ssd
+              if not k.startswith(("voxel_head.", "nocs_head."))),
+          "reference_weights: the partial import lost imported sections")
+    res.update(launches=launches["imported"], mota=motas["imported"],
+               strict_refused=refused[:120])
+    return res
+
+
+def _reference_tracker(seed, cfg, trk_seqs, work, dev):
+    """Random TrackerModels at the default GraphConfig, without and with
+    time-aware message passing -> the reference's three .pth files ->
+    `import-torch-ckpt` -> the port's checkpoint; logits against the
+    source's on the workflow's sequences; then the `infer-tracking --ckpt
+    --export-vis` path (in memory) and posed-shape OBJs."""
+    from mot3d_tpu_torch import cli
+    from mot3d_tpu_torch.importers.torch_export import (
+        export_tracking_modules, save_torch_state_dict)
+    from mot3d_tpu_torch.models.mpn import TrackerModel
+    from mot3d_tpu_torch.tracking.visualise import export_sequence
+    from mot3d_tpu_torch.train.tracking_trainer import TrackingTrainer
+
+    res = {}
+    for time_aware in (False, True):
+        tag = "time_aware" if time_aware else "default"
+        g = dataclasses.replace(cfg.graph, time_aware_mp=time_aware)
+        cfg_g = cfg.replace(graph=g)
+        torch.manual_seed(seed + 4 + time_aware)
+        src = TrackerModel(g, device=dev)
+        paths = []
+        for name, sd in zip(("voxel_encoder", "graph_net",
+                             "edge_classifier"),
+                            export_tracking_modules(src.state_dict(), g)):
+            paths.append(f"{work}/{tag}_{name}.pth")
+            save_torch_state_dict(paths[-1], sd, envelope=False)
+        t0 = time.perf_counter()
+        cli.main(["import-torch-ckpt", "--voxel-encoder", paths[0],
+                  "--graph-net", paths[1], "--edge-classifier", paths[2],
+                  "--out", f"{work}/{tag}", "--device", str(dev),
+                  f"graph.time_aware_mp={str(time_aware).lower()}"])
+        import_s = time.perf_counter() - t0
+        tt = TrackingTrainer(cfg_g, f"{work}/{tag}_eval", device=dev)
+        tt.init_state()
+        cli._restore_or_die(tt, f"{work}/{tag}", "mota")
+        check(_same_tensors(tt.model.state_dict(), src.state_dict()),
+              f"reference_weights: imported {tag} tracker differs")
+        src.eval()
+        for seq in trk_seqs["test"] + trk_seqs["val"]:
+            graph, _, _ = tt._forward_sequence(seq)
+            vox = torch.as_tensor(seq["voxels"], device=dev).reshape(
+                -1, 32, 32, 32)
+            with torch.no_grad(), _deterministic():
+                args = (vox, graph.src, graph.dst, graph.edge_attr,
+                        graph.edge_mask)
+                a, b = src(*args), tt.model(*args)
+            check(torch.equal(a, b) and bool(torch.isfinite(a).all()),
+                  f"reference_weights: {tag} logits differ from the source")
+        vis = f"{work}/{tag}_vis"
+        sync()
+        t0 = time.perf_counter()
+        result = tt.inference(trk_seqs["test"], export_dir=vis)
+        sync()
+        infer_s = time.perf_counter() - t0
+        files = sorted(os.path.relpath(os.path.join(d, f), vis)
+                       for d, _, fs in os.walk(vis) for f in fs)
+        for i in range(len(trk_seqs["test"])):
+            check(f"seq_{i:03d}/replay.html" in files,
+                  f"reference_weights: no replay.html for sequence {i}")
+        res[tag] = {"import_s": import_s, "logits_bit_equal": True,
+                    "sequences_per_s": len(trk_seqs["test"]) / infer_s,
+                    "mota": result["mota"], "files": len(files),
+                    "ply": sum(f.endswith(".ply") for f in files)}
+    # Posed shapes (the office path's export): one trajectory per slot
+    # over the first 3 frames of a test sequence, meshes by isosurface.
+    seq = trk_seqs["test"][0]
+    trajs = [[{"scan_idx": t, "loc": seq["translations"][t, i],
+               "cls": int(seq["classes"][t, i]),
+               "voxel": seq["voxels"][t, i], "euler": seq["rotations"][t, i],
+               "scale": float(seq["scales"][t, i])}
+              for t in range(min(3, len(seq["det_valid"])))
+              if seq["det_valid"][t, i]]
+             for i in range(seq["det_valid"].shape[1])]
+    trajs = [tr for tr in trajs if tr]
+    t0 = time.perf_counter()
+    export_sequence(f"{work}/shapes", trajs, with_shapes=True,
+                    fuse_shapes=True)
+    shapes_s = time.perf_counter() - t0
+    objs = [f for f in os.listdir(f"{work}/shapes") if f.endswith(".obj")]
+    check(len(objs) > 0 and any(f.startswith("fused_") for f in objs)
+          and os.path.exists(f"{work}/shapes/replay.html"),
+          "reference_weights: no posed-shape OBJs written")
+    res["shapes"] = {"seconds": shapes_s, "obj_files": len(objs),
+                     "detections": sum(map(len, trajs))}
+    return res
+
+
+def _distinct_shapes(seqs, cfg):
+    """The workflow's sequences with each matched GT identity's voxel grids
+    carved apart (a slab of the cube removed at an identity-dependent
+    depth): the fixture draws every object as the same cube, which leaves
+    the appearance embeddings identical and a triplet loss at its margin
+    with no gradient."""
+    from mot3d_tpu_torch.tracking.graph_builder import match_gt_identity
+
+    out = []
+    for seq in seqs:
+        t = {k: torch.as_tensor(np.asarray(seq[k])) for k in (
+            "pred_boxes", "det_valid", "gt_boxes", "gt_ids", "gt_valid")}
+        ids = match_gt_identity(t["pred_boxes"], t["det_valid"],
+                                t["gt_boxes"], t["gt_ids"], t["gt_valid"],
+                                cfg.tracking.box_iou_thres).numpy()
+        vox = np.array(seq["voxels"], copy=True)
+        for (f, i), oid in np.ndenumerate(ids):
+            if oid >= 0:
+                z = 8 + 3 * (int(oid) % 6)
+                vox[f, i, :, :, z:z + 3] = 0.0
+        out.append({**seq, "voxels": vox})
+    return out
+
+
+def _siamese(seed, cfg, trk_seqs, work, dev, epochs=6):
+    """SiameseTrainer on the workflow's sequences (identities carved apart,
+    `_distinct_shapes`) in each setup: median ms per step, the loss of the
+    first and last epoch, validation MOTA; card MOTA against the CPU's on
+    one sequence; inference with export_dir."""
+    from mot3d_tpu_torch.train.siamese_trainer import SiameseTrainer
+
+    trk_seqs = {k: _distinct_shapes(v, cfg) for k, v in trk_seqs.items()}
+    res = {}
+    for name, kw in SIAMESE_SETUPS.items():
+        cfg_s = cfg.replace(siamese=dataclasses.replace(
+            cfg.siamese, batch_size=1, **kw))
+        torch.manual_seed(seed)
+        st = SiameseTrainer(cfg_s, f"{work}/siamese_{name}", device=dev)
+        st.init_state()
+        pre = name.endswith("precompute")
+        step_fn = st._step(pre)
+        ms, losses = [], []
+
+        def timed(state, batch, *feats):
+            sync()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, batch, *feats)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(metrics["siamese_loss"]))
+            return state, metrics
+
+        st._step_fn[pre] = timed
+        torch.cuda.reset_peak_memory_stats()
+        val = st.train(trk_seqs["train"], trk_seqs["val"], num_epochs=epochs,
+                       precompute=pre, cache_dir=f"{work}/cache_{name}"
+                       if pre else None)
+        per = len(trk_seqs["train"])
+        first, last = (float(np.mean(losses[:per])),
+                       float(np.mean(losses[-per:])))
+        check(all(np.isfinite(losses)), f"siamese {name}: non-finite loss")
+        if pre:
+            # The cached features are fixed and the triplet loss reads
+            # only them: no parameter reaches it, the loss cannot move.
+            check(last == first, f"siamese {name}: loss moved ({first} -> "
+                  f"{last}) on fixed features")
+        else:
+            check(last < first, f"siamese {name}: loss did not fall "
+                  f"({first} -> {last})")
+        one = trk_seqs["test"][:1]
+        card = st.validate(one)["mota"]
+        cpu = SiameseTrainer(cfg_s, f"{work}/siamese_{name}_cpu",
+                             device="cpu")
+        cpu.init_state(params={k: v.cpu() for k, v in
+                               st.model.state_dict().items()})
+        on_cpu = cpu.validate(one)["mota"]
+        check(card == on_cpu, f"siamese {name}: MOTA {card} on the card, "
+              f"{on_cpu} on the CPU")
+        sync()
+        t0 = time.perf_counter()
+        test = st.inference(trk_seqs["test"],
+                            export_dir=f"{work}/siamese_{name}_vis")
+        sync()
+        res[name] = {
+            "steps": len(ms), "median_ms_per_step": float(np.median(ms[1:])),
+            "loss_first_epoch": first, "loss_last_epoch": last,
+            "val_mota": val["mota"], "test_mota": test["mota"],
+            "mota_one_sequence_card_cpu": [card, on_cpu],
+            "inference_sequences_per_s": len(trk_seqs["test"])
+            / (time.perf_counter() - t0),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return res
+
+
+def phase_reference_weights(seed, cfg, trk, template, seqs, draws, trk_seqs,
+                            smi, dev):
+    """The reference's weights in, tracks and meshes out: detectron2 and
+    tracking .pth files through `import-torch-ckpt` (bit-equal models and
+    evaluation path; K3 and K1 launched by the imported detector), the
+    visualisation export, and the siamese tracker's three setups."""
+    import shutil
+
+    work = "build/chip_smoke_reference"
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    res = {"phase": "reference_weights", "card": smi,
+           "detector": _reference_detector(seed, cfg, trk, template, seqs,
+                                           draws, work, dev),
+           "tracker": _reference_tracker(seed, cfg, trk_seqs, work, dev),
+           "siamese": _siamese(seed, cfg, trk_seqs, work, dev)}
+    res["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    emit(res)
+    print("reference_weights: stages in memory: the tracking sequences are "
+          "the workflow phase's in-memory exports (no .h5 read), and the "
+          "infer-tracking --ckpt --export-vis path runs as "
+          "TrackingTrainer + the CLI's restore in this process", flush=True)
+    return res["detector"]["launches"]
 
 
 def main() -> int:
@@ -1630,7 +2006,10 @@ def main() -> int:
     phase_turns({"main_path": main_step, "eval_path": eval_step}, seqs, draws,
                 cfg.tracking.seq_len)
     train_launches = phase_train(args.seed, cfg, dev)
-    workflow_launches, workflow_ms = phase_workflow(args.seed, cfg, dev)
+    workflow_launches, workflow_ms, trk_seqs = phase_workflow(args.seed,
+                                                              cfg, dev)
+    reference_launches = phase_reference_weights(
+        args.seed, cfg, trk, template, seqs, draws, trk_seqs, smi, dev)
 
     kernels = [
         {"name": "knn_outlier", "route": "cuda",
@@ -1643,7 +2022,8 @@ def main() -> int:
          "bound_by": k1_res["bound_by"], "library_ms": None,
          "train_launches": train_launches["knn_outlier"],
          "workflow_launches": workflow_launches["knn_outlier"],
-         "workflow_device_ms": workflow_ms["knn_outlier"]},
+         "workflow_device_ms": workflow_ms["knn_outlier"],
+         "reference_launches": reference_launches["knn_outlier"]},
         {"name": "pose_extract", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/pose_extract.cu",
          "replaces": "mot3d_tpu/ops/pallas/pose_extract.py:129",
@@ -1655,7 +2035,8 @@ def main() -> int:
          "bound_by": k2_res["bound_by"], "library_ms": None,
          "train_launches": train_launches["pose_extract"],
          "workflow_launches": workflow_launches["pose_extract"],
-         "workflow_device_ms": workflow_ms["pose_extract"]},
+         "workflow_device_ms": workflow_ms["pose_extract"],
+         "reference_launches": 0},
         {"name": "nms", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/nms.cu",
          "replaces": "mot3d_tpu/ops/pallas/nms_kernel.py:81",
@@ -1667,7 +2048,8 @@ def main() -> int:
          "bound_by": k3_res["bound_by"], "library_ms": None,
          "train_launches": train_launches["nms"],
          "workflow_launches": workflow_launches["nms"],
-         "workflow_device_ms": workflow_ms["nms"]},
+         "workflow_device_ms": workflow_ms["nms"],
+         "reference_launches": reference_launches["nms"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

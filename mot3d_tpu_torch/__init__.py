@@ -21,7 +21,7 @@ a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch version.
 
 from mot3d_tpu_torch.config import Config, default_config
 from mot3d_tpu_torch.device import resolve_device
-from mot3d_tpu_torch.importers.flax_params import import_config
+from mot3d_tpu_torch.importers.torch_ckpt import import_config
 from mot3d_tpu_torch.tracking.tracker import Tracker
 
 __all__ = ["Config", "Tracker", "default_config", "import_config",

@@ -6,6 +6,9 @@ reference's scripts:
     python -m mot3d_tpu_torch.cli export-detections # Detection/inference_detector.py
     python -m mot3d_tpu_torch.cli train-tracking    # Tracking/train.py (--use_graph)
     python -m mot3d_tpu_torch.cli infer-tracking    # Tracking/inference.py
+    python -m mot3d_tpu_torch.cli train-siamese     # Tracking/train.py (no graph)
+    python -m mot3d_tpu_torch.cli infer-siamese     # Tracking/inference.py (no graph)
+    python -m mot3d_tpu_torch.cli import-torch-ckpt # the reference's .pth weights
 
 Every subcommand runs on the GPU unless given `--device cpu` (it raises
 without a GPU otherwise).  Config overrides use `section.field=value`
@@ -15,9 +18,9 @@ without a GPU otherwise).  Config overrides use `section.field=value`
         tracking.learning_rate=5e-4 run.seed=1
 
 Checkpoints are the port's own (`train/checkpoints.py`, one `torch.save`
-file per step); `--ckpt` takes a trainer's output dir or its `ckpt/`.
-train-siamese, infer-siamese, infer-office and import-torch-ckpt are not
-ported yet and raise, naming their ROADMAP.md item.
+file per step); `--ckpt` takes a trainer's output dir or its `ckpt/`, and
+`import-torch-ckpt` writes them from the reference's torch checkpoints.
+infer-office is not ported yet and raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,11 +34,12 @@ from typing import List
 from mot3d_tpu_torch.config import Config, apply_overrides, default_config
 
 _NOT_PORTED = {
-    "train-siamese": "the siamese tracker",
-    "infer-siamese": "the siamese tracker",
     "infer-office": "Office, F2F, heuristic and smoothing",
-    "import-torch-ckpt": "importers/torch_ckpt.py",
 }
+# What an imported detector runs under (`importers/torch_ckpt.py:
+# import_config`), as overrides of the commands that read its checkpoint.
+IMPORT_OVERRIDES = ("detection.norm=affine detection.voxel_torch_reshape=true "
+                    "detection.anchor_offset=0.0 detection.stride_in_1x1=true")
 
 
 def _parse(argv: List[str]):
@@ -94,7 +98,51 @@ def _parse(argv: List[str]):
     it.add_argument("--ckpt", required=True)
     it.add_argument("--out", default="out/tracking_eval")
     it.add_argument("--export-vis", action="store_true",
-                    help="per-sequence visualisations (not ported yet)")
+                    help="write per-sequence replay.html + trajectory PLYs")
+
+    # The siamese (non-graph) tracker: the reference's `Tracking/train.py`
+    # with --use_graph=False, ablations from `Tracking/options.py:36-83`.
+    ts = sub.add_parser("train-siamese", parents=[common])
+    ts.add_argument("--data", required=True, help="dir of scene h5 folders")
+    ts.add_argument("--val-data", required=True)
+    ts.add_argument("--out", default="out/siamese")
+    ts.add_argument("--epochs", type=int, default=None)
+    ts.add_argument("--no-pose", action="store_true")
+    ts.add_argument("--no-geo", action="store_true")
+    ts.add_argument("--use-triplet", action="store_true")
+    ts.add_argument("--use-l1", action="store_true")
+    ts.add_argument("--precompute", action="store_true",
+                    help="cache voxel-encoder features before training")
+    ts.add_argument("--cache-dir", default=None)
+    ts.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --out")
+
+    si = sub.add_parser("infer-siamese", parents=[common])
+    si.add_argument("--data", required=True)
+    si.add_argument("--ckpt", required=True)
+    si.add_argument("--out", default="out/siamese_eval")
+    si.add_argument("--export-vis", action="store_true",
+                    help="write per-sequence replay.html + trajectory PLYs")
+
+    # The reference's protocol starts from torch weights
+    # (`Detection/cfg_setup.py:21,137`; `Tracking/mpn_trainer.py:933-960`).
+    im = sub.add_parser("import-torch-ckpt", parents=[common])
+    im.add_argument("--pth", default=None,
+                    help="detectron2-format detector state_dict "
+                         "(best_model.pth or COCO zoo)")
+    im.add_argument("--voxel-encoder", default=None,
+                    help="tracking voxel_encoder.pth")
+    im.add_argument("--graph-net", default=None, help="graph_net.pth")
+    im.add_argument("--edge-classifier", default=None,
+                    help="edge_classifier.pth")
+    im.add_argument("--allow-partial", action="store_true",
+                    help="keep a fresh init for sections absent from --pth "
+                         "(e.g. COCO zoo without voxel/NOCS heads)")
+    im.add_argument("--out", required=True,
+                    help="checkpoint dir (read by export-detections --ckpt "
+                         "/ train-combined --det-ckpt / infer-tracking "
+                         "--ckpt; an imported detector runs under "
+                         + IMPORT_OVERRIDES + ")")
 
     for name in _NOT_PORTED:
         sub.add_parser(name, parents=[common])
@@ -199,12 +247,77 @@ def _init_detector(cfg: Config, ckpt, device):
     return model
 
 
+def _import_torch_ckpt(args, cfg: Config, device) -> None:
+    """import-torch-ckpt: the reference's .pth files -> the port's
+    checkpoints at step 0 (`det/ckpt` and `trk/ckpt` when both parts are
+    imported, else `ckpt`), with a fresh AdamW state."""
+    import torch
+
+    from mot3d_tpu_torch.importers.torch_ckpt import (
+        import_config, import_detectron2_maskrcnn, import_tracking_modules,
+        load_torch_state_dict)
+    from mot3d_tpu_torch.train.checkpoints import CheckpointManager
+    tracking = (args.voxel_encoder, args.graph_net, args.edge_classifier)
+    if not (args.pth or any(tracking)):
+        raise SystemExit("nothing to import: pass --pth and/or the three "
+                         "tracking module paths")
+    if any(tracking) and not all(tracking):
+        raise SystemExit("tracking import needs all three of "
+                         "--voxel-encoder --graph-net --edge-classifier")
+    both = bool(args.pth) and any(tracking)
+
+    def save(part, state):
+        directory = os.path.join(args.out, part, "ckpt") if both \
+            else os.path.join(args.out, "ckpt")
+        if not CheckpointManager(directory).save(0, state):
+            raise SystemExit(f"a checkpoint at step 0 exists already in "
+                             f"{directory}")
+        return directory
+
+    if args.pth:
+        from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+        from mot3d_tpu_torch.train.combined_trainer import \
+            detection_optimizer
+        from mot3d_tpu_torch.train.detection_trainer import \
+            DetectionTrainState
+        det_cfg = import_config(cfg.detection)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.run.seed)
+            model = MaskRCNN(det_cfg, device=device)
+        sd = import_detectron2_maskrcnn(
+            load_torch_state_dict(args.pth), det_cfg,
+            init_state_dict=model.state_dict(),
+            strict=not args.allow_partial)
+        model.load_state_dict(sd)
+        state = DetectionTrainState(
+            model, *detection_optimizer(cfg.replace(detection=det_cfg),
+                                        model))
+        n = sum(p.numel() for p in model.parameters())
+        print(f"imported detector ({n / 1e6:.1f}M params) -> "
+              f"{save('det', state)}; use with {IMPORT_OVERRIDES}")
+    if all(tracking):
+        from mot3d_tpu_torch.models.mpn import TrackerModel
+        from mot3d_tpu_torch.parallel.train_step import TrackingTrainState
+        from mot3d_tpu_torch.train.combined_trainer import adamw
+        from mot3d_tpu_torch.train.schedules import warmup_multistep
+        model = TrackerModel(cfg.graph, device=device)
+        model.load_state_dict(import_tracking_modules(
+            *(load_torch_state_dict(p) for p in tracking), cfg.graph))
+        t = cfg.tracking
+        state = TrackingTrainState(model, *adamw(
+            model.parameters(), warmup_multistep(t.learning_rate),
+            t.weight_decay))
+        n = sum(p.numel() for p in model.parameters())
+        print(f"imported tracking modules ({n / 1e6:.2f}M params) -> "
+              f"{save('trk', state)}")
+
+
 def main(argv=None):
     args, overrides = _parse(argv if argv is not None else sys.argv[1:])
     if args.cmd in _NOT_PORTED:
         raise NotImplementedError(
             f"{args.cmd} is not ported yet: ROADMAP.md Queue 1, item "
-            f"'Remaining modules' ({_NOT_PORTED[args.cmd]})")
+            f"'{_NOT_PORTED[args.cmd]}'")
     from mot3d_tpu_torch.device import resolve_device
     device = resolve_device(args.device)
     cfg = apply_overrides(default_config(), overrides)
@@ -227,6 +340,35 @@ def main(argv=None):
         trainer.inference(seqs, classwise=True,
                           export_dir=os.path.join(args.out, "vis")
                           if args.export_vis else None)
+
+    elif args.cmd == "train-siamese":
+        from mot3d_tpu_torch.train.siamese_trainer import SiameseTrainer
+        s = cfg.siamese
+        cfg = cfg.replace(siamese=dataclasses.replace(
+            s, no_pose=args.no_pose or s.no_pose,
+            no_geo=args.no_geo or s.no_geo,
+            use_triplet=args.use_triplet or s.use_triplet,
+            use_l1=args.use_l1 or s.use_l1))
+        (train, val), cfg = _pad_h5_sequences(
+            [_read_h5_scenes(args.data), _read_h5_scenes(args.val_data)],
+            cfg)
+        trainer = SiameseTrainer(cfg, output_dir=args.out, device=device)
+        print(trainer.train(train, val, num_epochs=args.epochs,
+                            precompute=args.precompute,
+                            cache_dir=args.cache_dir, resume=args.resume))
+
+    elif args.cmd == "infer-siamese":
+        from mot3d_tpu_torch.train.siamese_trainer import SiameseTrainer
+        seqs, cfg = _load_h5_sequences(args.data, cfg)
+        trainer = SiameseTrainer(cfg, output_dir=args.out, device=device)
+        trainer.init_state()
+        _restore_or_die(trainer, args.ckpt, "mota")
+        trainer.inference(seqs, classwise=True,
+                          export_dir=os.path.join(args.out, "vis")
+                          if args.export_vis else None)
+
+    elif args.cmd == "import-torch-ckpt":
+        _import_torch_ckpt(args, cfg, device)
 
     elif args.cmd == "train-detection":
         from mot3d_tpu_torch.data.detection_loader import \

@@ -31,14 +31,13 @@ becomes float32.
 
 from __future__ import annotations
 
-import dataclasses
 import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from mot3d_tpu_torch.config import Config, DetectionConfig
+from mot3d_tpu_torch.config import Config
 from mot3d_tpu_torch.models.norms import check_norm
 
 _TRANSPOSED = re.compile(r"ConvTranspose_\d+|l[123]_[rgb]")
@@ -98,15 +97,6 @@ def flax_to_state_dict(flax_params: Mapping[str, Any]
             for key, arr in (_leaf(p, v) for p, v in _flatten(tree))}
 
 
-def import_config(cfg: DetectionConfig) -> DetectionConfig:
-    """The DetectionConfig variant a detector imported from the reference's
-    checkpoint runs under: frozen-affine norms, the torch `view()` voxel
-    reshape, detectron2's anchor offset 0.0 and the stage stride on the
-    bottleneck's 1x1 convolution."""
-    return dataclasses.replace(cfg, norm="affine", voxel_torch_reshape=True,
-                               anchor_offset=0.0, stride_in_1x1=True)
-
-
 def mask_rcnn_state_dict(flax_params: Mapping[str, Any],
                          cfg: Config) -> Dict[str, torch.Tensor]:
     """`mot3d_tpu.models.mask_rcnn.MaskRCNN` params (or a tree of their
@@ -121,10 +111,14 @@ def tracker_state_dict(flax_params: Mapping[str, Any],
     """`mot3d_tpu.models.mpn.TrackerModel` params (or a tree of their
     structure) -> the state_dict of
     `mot3d_tpu_torch.models.mpn.TrackerModel(cfg.graph)`."""
-    if cfg.graph.time_aware_mp:
-        raise NotImplementedError(
-            "graph.time_aware_mp=True is not ported yet: ROADMAP.md Queue 1, "
-            "item 'Time-aware message passing'")
+    return flax_to_state_dict(flax_params)
+
+
+def siamese_state_dict(flax_params: Mapping[str, Any],
+                       cfg: Config) -> Dict[str, torch.Tensor]:
+    """`mot3d_tpu.models.siamese.SiameseTracker` params (or a tree of their
+    structure) -> the state_dict of
+    `mot3d_tpu_torch.models.siamese.SiameseTracker(cfg.siamese)`."""
     return flax_to_state_dict(flax_params)
 
 

@@ -12,8 +12,9 @@ Architecture (`Tracking/graph_cfg.py:3-35`):
     32^3 -> strided convs (8, 16, 32, 32 ch) -> FC 2048 -> 256 -> out;
   - MPGraph (`Tracking/networks/mpn.py:119-254`): edge-encoder MLP; per
     step the edge MLP updates e_ij from [h_i, h_j, e_init || e_ij] and the
-    node MLP updates h_i from [h_i, aggregate of its edges]; the edge states
-    of steps 2..S are returned;
+    node MLP updates h_i from [h_i, aggregate of its edges] (time-aware:
+    separate flow-in and flow-out MLPs over the backward and forward edges,
+    fused by a third); the edge states of steps 2..S are returned;
   - EdgeClassifier (`Tracking/networks/edge_classifier.py:9-24`).
 """
 
@@ -94,7 +95,7 @@ _AGGREGATE = {"mean": segment_mean, "max": segment_max, "sum": segment_sum}
 
 
 class MPGraph(nn.Module):
-    """Dense-padded message passing (non-time-aware).
+    """Dense-padded message passing.
 
     forward(node_feats (N, node_dim), src, dst (E,), edge_attr
     (E, edge_in), edge_mask (E,)) -> list of (E, edge_out) edge states after
@@ -102,10 +103,6 @@ class MPGraph(nn.Module):
 
     def __init__(self, cfg: GraphConfig):
         super().__init__()
-        if cfg.time_aware_mp:
-            raise NotImplementedError(
-                "graph.time_aware_mp=True is not ported yet: ROADMAP.md "
-                "Queue 1, item 'Time-aware message passing'")
         if cfg.node_agg_fn not in _AGGREGATE:
             raise ValueError(f"unknown node_agg_fn {cfg.node_agg_fn!r}")
         self.cfg = cfg
@@ -118,8 +115,17 @@ class MPGraph(nn.Module):
         e_in = 2 * e_dim if cfg.reattach_initial_edges else e_dim
         self.edge_model = MLP(2 * h_in + e_in, cfg.edge_model_fc_dims,
                               cfg.use_leaky_relu)
-        self.node_model = MLP(h_dim + cfg.edge_model_fc_dims[-1],
-                              cfg.node_model_fc_dims, cfg.use_leaky_relu)
+        msg_dim = cfg.edge_model_fc_dims[-1]
+        if cfg.time_aware_mp:
+            for name in ("flow_in", "flow_out"):
+                self.add_module(name, MLP(h_in + msg_dim,
+                                          cfg.node_model_fc_dims,
+                                          cfg.use_leaky_relu))
+            self.node_fuse = MLP(2 * cfg.node_model_fc_dims[-1],
+                                 cfg.node_model_fc_dims, cfg.use_leaky_relu)
+        else:
+            self.node_model = MLP(h_dim + msg_dim, cfg.node_model_fc_dims,
+                                  cfg.use_leaky_relu)
 
     def forward(self, node_feats, src, dst, edge_attr, edge_mask):
         g = self.cfg
@@ -129,13 +135,24 @@ class MPGraph(nn.Module):
         e = self.edge_encoder(edge_attr)
         h = act(node_feats)
         e0, h0 = e, h
+        agg = _AGGREGATE[g.node_agg_fn]
         outputs = []
         for step in range(1, g.num_mp_steps + 1):
             e_in = torch.cat([e0, e], -1) if g.reattach_initial_edges else e
             h_in = torch.cat([h0, h], -1) if g.reattach_initial_nodes else h
             e = self.edge_model(torch.cat([h_in[src], h_in[dst], e_in], -1))
-            msg = _AGGREGATE[g.node_agg_fn](e, src, num_nodes, edge_mask)
-            h = self.node_model(torch.cat([h, msg], -1))
+            if g.time_aware_mp:
+                # Grouped by src: forward-in-time edges (src < dst) carry
+                # the flow out of a node, backward ones the flow into it.
+                hd_e = torch.cat([h_in[dst], e], -1)
+                fo = agg(self.flow_out(hd_e), src, num_nodes,
+                         edge_mask & (src < dst))
+                fi = agg(self.flow_in(hd_e), src, num_nodes,
+                         edge_mask & (src > dst))
+                h = self.node_fuse(torch.cat([fi, fo], -1))
+            else:
+                h = self.node_model(torch.cat(
+                    [h, agg(e, src, num_nodes, edge_mask)], -1))
             if step > 1:
                 outputs.append(e)
         return outputs

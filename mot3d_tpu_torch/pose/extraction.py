@@ -83,8 +83,10 @@ def grid_extract(nocs: torch.Tensor, masks: torch.Tensor,
 
     fx, fy = intrinsics[0, 0], intrinsics[1, 1]
     cx, cy = intrinsics[0, 2], intrinsics[1, 2]
-    x = (ux[:, None, :].float() - cx) / fx * d
-    y = (vy[:, :, None].float() - cy) / fy * d
+    # In the depth's dtype: a float32 pixel index minus a 0-dim float64
+    # intrinsic would stay float32 under torch's promotion (not JAX's).
+    x = (ux[:, None, :].to(d.dtype) - cx) / fx * d
+    y = (vy[:, :, None].to(d.dtype) - cy) / fy * d
     pts = torch.stack([x, -y, -d], dim=-1)
     feats = torch.cat([pts, n], dim=-1).reshape(s, grid * grid, 6)
     valid = valid.reshape(s, grid * grid)

@@ -14,7 +14,7 @@ seeded by `run.seed`, kept on resume.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -30,14 +30,12 @@ from mot3d_tpu_torch.tracking.graph_builder import build_graph, make_template
 from mot3d_tpu_torch.tracking.mot_metrics import (accumulated_idf1,
                                                   accumulated_mota)
 from mot3d_tpu_torch.tracking.tracker import Tracker
+from mot3d_tpu_torch.tracking.visualise import export_sequence
 from mot3d_tpu_torch.train.checkpoints import (CheckpointManager,
                                                resume_trainer)
 from mot3d_tpu_torch.train.combined_trainer import adamw
 from mot3d_tpu_torch.train.metrics_writer import MetricsWriter
 from mot3d_tpu_torch.train.schedules import warmup_multistep
-
-_VIS = ("per-sequence visualisation export is not ported yet: ROADMAP.md "
-        "Queue 1, item 'Visualise, replay and isosurface'")
 
 
 def sequences_to_batch(seqs: List[dict]) -> TrackingBatch:
@@ -51,6 +49,50 @@ def sequences_to_batch(seqs: List[dict]) -> TrackingBatch:
         rotations=f("rotations"), scales=f("scales"),
         pred_boxes=f("pred_boxes"), voxels=f("voxels"),
         gt_boxes=f("gt_boxes"), gt_ids=f("gt_ids"), gt_valid=f("gt_valid"))
+
+
+def validate_sequences(tracker: Tracker, template, seqs: List[dict],
+                       forward: Callable, classwise: bool = False,
+                       export_dir: Optional[str] = None) -> Dict[str, float]:
+    """The validation loop both tracking trainers share: `forward(seq)`
+    gives the host (edge probabilities, obj_ids, loss) of one sequence;
+    trajectories are assembled and scored on the host (accumulated MOTA and
+    IDF1, per class with `classwise`), and with `export_dir` each
+    sequence's visualisations go to seq_<i>/."""
+    summaries, losses = [], []
+    e = len(template.src_frame)
+    per_class_acc: Dict[str, list] = {}
+    for si, seq in enumerate(seqs):
+        probs, obj_ids, loss = forward(seq)
+        losses.append(float(loss))
+        pred = tracker.assemble(
+            template, probs[:e], obj_ids.astype(np.int64),
+            np.asarray(seq["det_valid"]), np.asarray(seq["translations"]),
+            np.asarray(seq["classes"]))
+        gt = tracker.gt_trajectories(
+            np.asarray(seq["gt_ids"]), np.asarray(seq["gt_valid"]),
+            np.asarray(seq["gt_locations"]), np.asarray(seq["gt_classes"]))
+        if export_dir is not None:
+            export_sequence(os.path.join(export_dir, f"seq_{si:03d}"), pred,
+                            gt_trajectories=gt)
+        if classwise:
+            summary, per_class = tracker.evaluate(pred, gt, True)
+            for k, v in per_class.items():
+                per_class_acc.setdefault(k, []).append(v)
+        else:
+            summary = tracker.evaluate(pred, gt)
+        summaries.append(summary)
+    out = {
+        "val_loss": float(np.mean(losses)) if losses else 0.0,
+        "mota": accumulated_mota(summaries),
+        "idf1": accumulated_idf1(summaries),
+        "precision": float(np.mean([s["precision"] for s in summaries])),
+        "recall": float(np.mean([s["recall"] for s in summaries])),
+        "switches": float(sum(s["num_switches"] for s in summaries)),
+    }
+    for k, v in per_class_acc.items():
+        out[f"mota_{k}"] = accumulated_mota(v)
+    return out
 
 
 class TrackingTrainer:
@@ -159,49 +201,21 @@ class TrackingTrainer:
     def validate(self, seqs: List[dict], classwise: bool = False,
                  export_dir: Optional[str] = None) -> Dict[str, float]:
         """Per-sequence MOTA + mean loss (`mpn_trainer.py:728-809`), one
-        device-to-host copy per sequence.  `export_dir` (per-sequence
-        visualisations) is not ported yet and raises."""
-        if export_dir is not None:
-            raise NotImplementedError(_VIS)
-        summaries, losses = [], []
-        e = len(self.template.src_frame)
-        per_class_acc: Dict[str, list] = {}
-        for seq in seqs:
+        device-to-host copy per sequence; `export_dir` writes each
+        sequence's replay.html (predicted and GT tracks) and trajectory
+        PLYs under seq_<i>/ (the reference's visualise_pred_sequence)."""
+        def forward(seq):
             graph, probs, loss = self._forward_sequence(seq)
-            probs, obj_ids, loss = to_host([probs, graph.obj_ids, loss],
-                                           torch.float64)
-            losses.append(float(loss))
-            pred = self.tracker.assemble(
-                self.template, probs[:e], obj_ids.astype(np.int64),
-                np.asarray(seq["det_valid"]),
-                np.asarray(seq["translations"]), np.asarray(seq["classes"]))
-            gt = self.tracker.gt_trajectories(
-                np.asarray(seq["gt_ids"]), np.asarray(seq["gt_valid"]),
-                np.asarray(seq["gt_locations"]),
-                np.asarray(seq["gt_classes"]))
-            if classwise:
-                summary, per_class = self.tracker.evaluate(pred, gt, True)
-                for k, v in per_class.items():
-                    per_class_acc.setdefault(k, []).append(v)
-            else:
-                summary = self.tracker.evaluate(pred, gt)
-            summaries.append(summary)
-        out = {
-            "val_loss": float(np.mean(losses)) if losses else 0.0,
-            "mota": accumulated_mota(summaries),
-            "idf1": accumulated_idf1(summaries),
-            "precision": float(np.mean([s["precision"] for s in summaries])),
-            "recall": float(np.mean([s["recall"] for s in summaries])),
-            "switches": float(sum(s["num_switches"] for s in summaries)),
-        }
-        for k, v in per_class_acc.items():
-            out[f"mota_{k}"] = accumulated_mota(v)
-        return out
+            return to_host([probs, graph.obj_ids, loss], torch.float64)
+
+        return validate_sequences(self.tracker, self.template, seqs, forward,
+                                  classwise, export_dir)
 
     def inference(self, seqs: List[dict], classwise: bool = True,
                   export_dir: Optional[str] = None) -> Dict[str, float]:
         """`Tracking/inference.py`: evaluate a trained model on test
-        sequences and print accumulated and per-class MOTA."""
+        sequences and print accumulated and per-class MOTA; `export_dir`
+        as in `validate` (the CLI's `infer-tracking --export-vis`)."""
         result = self.validate(seqs, classwise=classwise,
                                export_dir=export_dir)
         for k, v in sorted(result.items()):

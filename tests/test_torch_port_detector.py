@@ -39,8 +39,8 @@ from mot3d_tpu.models.mask_rcnn import RPN_STRIDES
 from mot3d_tpu.ops import nms as nms_j
 from mot3d_tpu.ops.roi_align import multilevel_roi_align_packed as roi_j
 from mot3d_tpu_torch.importers.flax_params import (flax_to_state_dict,
-                                                   import_config,
                                                    mask_rcnn_state_dict)
+from mot3d_tpu_torch.importers.torch_ckpt import import_config
 from mot3d_tpu_torch.models import nocs_head as nocs_t
 from mot3d_tpu_torch.models import norms as norms_t
 from mot3d_tpu_torch.models import resnet_fpn as resnet_t
@@ -50,7 +50,7 @@ from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN as MaskRCNNT
 from mot3d_tpu_torch.models.mask_rcnn import STRIDES
 from mot3d_tpu_torch.ops import nms as nms_t
 from mot3d_tpu_torch.ops.roi_align import multilevel_roi_align_packed as roi_t
-from torch_port_helpers import (port_config, random_params,
+from torch_port_helpers import (jit_run, port_config, random_params,
                                 randomise_affine, tame_affine_backbone,
                                 to_torch)
 
@@ -76,9 +76,22 @@ def _models(mode="gn"):
     rng = np.random.default_rng(0)
     h, w = cfg_j.detection.pad_height, cfg_j.detection.pad_width
     images = rng.uniform(0, 255, (2, h, w, 3)).astype(np.float32)
-    params = random_params(det_j, jnp.asarray(images),
-                           method=MaskRCNNJ.predict)
-    if mode != "gn":
+    if mode == "import_bins":
+        # The import-mode weights with a bin head in place of the NOCS
+        # regression head (random params of the head alone: tracing the
+        # whole detector again would only rebuild the same shapes).
+        params = jax.tree_util.tree_map(np.asarray, _models("import")[2])
+        params = jax.tree_util.tree_map(lambda a: a.astype(np.float32),
+                                        params)
+        params["params"]["nocs_head"] = randomise_affine(random_params(
+            nocs_j.NocsBinDecoder(cfg_j.detection.nocs_num_bins,
+                                  norm="affine"),
+            jnp.zeros((1, 14, 14, cfg_j.detection.fpn_channels)), seed=7),
+            rng)["params"]
+    else:
+        params = random_params(det_j, jnp.asarray(images),
+                               method=MaskRCNNJ.predict)
+    if mode == "import":
         tame_affine_backbone(randomise_affine(params["params"], rng))
     cfg_t = port_config(cfg_j)
     det_t = MaskRCNNT(cfg_t.detection, device="cpu").eval()
@@ -88,10 +101,14 @@ def _models(mode="gn"):
     return cfg_j, det_j, params64, det_t.double(), images.astype(np.float64)
 
 
-def _jax_features(det_j, params, images):
-    return jax.jit(lambda p, x: det_j.apply(
-        p, x, method=lambda m, x: m.backbone(m._normalise(x))))(
-        params, jnp.asarray(images))
+@functools.lru_cache(maxsize=1)
+def _jax_rpn():
+    """JAX's FPN features and RPN head outputs of the "gn" model, compiled
+    and computed once for the tests that start from them (under x64)."""
+    cfg_j, det_j, params, det_t, images = _models()
+    return jit_run(lambda p, x: det_j.apply(
+        p, x, method=lambda m, x: (lambda f: (f, m.rpn_head(f)))(
+            m.backbone(m._normalise(x)))), params, jnp.asarray(images))
 
 
 @pytest.fixture(autouse=True)
@@ -102,7 +119,7 @@ def _x64():
 
 def test_backbone_fpn_and_rpn_head():
     cfg_j, det_j, params, det_t, images = _models()
-    feats_j = _jax_features(det_j, params, images)
+    feats_j, (obj_j, del_j) = _jax_rpn()
     with torch.no_grad():
         feats_t = det_t.features(to_torch(images))
         obj_t, del_t = det_t.rpn_head(feats_t)
@@ -111,8 +128,6 @@ def test_backbone_fpn_and_rpn_head():
         np.testing.assert_allclose(ft.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(fj), err_msg=f"P{lvl + 2}",
                                    **TOL)
-    obj_j, del_j = jax.jit(lambda p, f: det_j.apply(
-        p, f, method=lambda m, f: m.rpn_head(f)))(params, feats_j)
     np.testing.assert_allclose(obj_t.numpy(), np.asarray(obj_j), **TOL)
     np.testing.assert_allclose(del_t.numpy(), np.asarray(del_j), **TOL)
 
@@ -123,9 +138,7 @@ def test_select_proposals_and_nms(exact):
     decode, clip and level-aware NMS, fast and exact."""
     cfg_j, det_j, params, det_t, images = _models()
     c = cfg_j.detection
-    feats_j = _jax_features(det_j, params, images)
-    obj, dels = jax.jit(lambda p, f: det_j.apply(
-        p, f, method=lambda m, f: m.rpn_head(f)))(params, feats_j)
+    _, (obj, dels) = _jax_rpn()
     anchors = rpn_j.generate_anchors(c.pad_height, c.pad_width,
                                      tuple(c.anchor_sizes),
                                      tuple(c.anchor_ratios), RPN_STRIDES,
@@ -171,8 +184,7 @@ def test_nms_and_top_k_ties():
 
 
 def test_roi_align_packed():
-    cfg_j, det_j, params, det_t, images = _models()
-    feats_j = _jax_features(det_j, params, images)
+    feats_j, _ = _jax_rpn()
     rng = np.random.default_rng(4)
     xy = rng.uniform(-4, 60, (9, 2))
     boxes = np.concatenate([xy, xy + rng.uniform(2, 64, (9, 2))], 1)
@@ -188,7 +200,7 @@ def _sub_module(module_j, module_t, x, seed=0):
     params = random_params(module_j, jnp.asarray(x, jnp.float32), seed=seed)
     randomise_affine(params["params"], np.random.default_rng(seed + 1))
     module_t.load_state_dict(flax_to_state_dict(params), strict=True)
-    want = module_j.apply(jax.tree_util.tree_map(
+    want = jit_run(module_j.apply, jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float64), params), jnp.asarray(x))
     return np.asarray(want), module_t.double().eval()
 
@@ -277,8 +289,8 @@ def test_import_config_is_a_faithful_copy():
 def test_predict(mode):
     cfg_j, det_j, params, det_t, images = _models(mode)
     assert cfg_j.detection.fast_nms == (mode == "gn")
-    want = jax.jit(lambda p, x: det_j.apply(p, x, method=MaskRCNNJ.predict))(
-        params, jnp.asarray(images))
+    want = jit_run(lambda p, x: det_j.apply(p, x, method=MaskRCNNJ.predict),
+                   params, jnp.asarray(images))
     got = det_t.predict(to_torch(images))
     ok = np.asarray(want.valid)
     assert ok.any()

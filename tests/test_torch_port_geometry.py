@@ -23,6 +23,7 @@ from mot3d_tpu_torch.geometry import transforms as tf_t
 from mot3d_tpu_torch.geometry import umeyama as um_t
 from mot3d_tpu_torch.geometry.outlier import statistical_outlier_mask as som_t
 from mot3d_tpu_torch.ops import segment as seg_t
+from torch_port_helpers import jit_run
 
 torch.set_num_threads(1)
 
@@ -40,12 +41,13 @@ def test_euler_rotmat_quaternion_roundtrip():
     rng = np.random.default_rng(0)
     euler = rng.uniform(-np.pi, np.pi, (16, 3)).astype(np.float32)
     euler[0] = [0.3, np.pi / 2, -0.2]           # gimbal pole
-    r_j = tf_j.euler_to_rotmat(jnp.asarray(euler))
+    r_j, e_j, q_j = jax.jit(lambda e: (lambda r: (
+        r, tf_j.rotmat_to_euler(r), tf_j.quaternion_from_euler(e)))(
+        tf_j.euler_to_rotmat(e)))(jnp.asarray(euler))
     r_t = tf_t.euler_to_rotmat(_t(euler))
     _close(r_t, r_j, 1e-6)
-    _close(tf_t.rotmat_to_euler(r_t), tf_j.rotmat_to_euler(r_j), 1e-5)
-    _close(tf_t.quaternion_from_euler(_t(euler)),
-           tf_j.quaternion_from_euler(jnp.asarray(euler)), 1e-6)
+    _close(tf_t.rotmat_to_euler(r_t), e_j, 1e-5)
+    _close(tf_t.quaternion_from_euler(_t(euler)), q_j, 1e-6)
 
 
 def test_cam_to_world_aabb_and_sort_bbox():
@@ -60,14 +62,14 @@ def test_cam_to_world_aabb_and_sort_bbox():
     mins = rng.normal(size=(6, 3)).astype(np.float32)
     maxs = mins + rng.uniform(0.1, 2.0, (6, 3)).astype(np.float32)
     box_t = tf_t.aabb_corners(_t(mins), _t(maxs))
-    _close(box_t, np.stack([np.asarray(tf_j.aabb_corners(
-        jnp.asarray(a), jnp.asarray(b))) for a, b in zip(mins, maxs)]), 1e-6)
+    _close(box_t, jax.jit(jax.vmap(tf_j.aabb_corners))(
+        jnp.asarray(mins), jnp.asarray(maxs)), 1e-6)
     # Shuffled corners come back in the canonical order, as in JAX.
     shuffled = np.stack([b[rng.permutation(8)]
                          for b in box_t.numpy()]).astype(np.float32)
     out_t = tf_t.sort_bbox(_t(shuffled)).numpy()
-    out_j = np.stack([np.asarray(tf_j.sort_bbox(jnp.asarray(b)))
-                      for b in shuffled])
+    out_j = np.asarray(jax.jit(jax.vmap(tf_j.sort_bbox))(
+        jnp.asarray(shuffled)))
     np.testing.assert_array_equal(out_t, out_j)
     np.testing.assert_array_equal(out_t, box_t.numpy())
 
@@ -79,14 +81,15 @@ def test_iou_matrices():
                         ).astype(np.float32)
     b2 = np.concatenate([b1[:3] + 2.0, b1[3:5] * 0.5 + 20.0], 0)
     _close(iou_t.box2d_iou_matrix(_t(b1), _t(b2)),
-           iou_j.box2d_iou_matrix(jnp.asarray(b1), jnp.asarray(b2)), 1e-6)
+           jax.jit(iou_j.box2d_iou_matrix)(jnp.asarray(b1), jnp.asarray(b2)),
+           1e-6)
 
     def boxes(n, seed):
         r = np.random.default_rng(seed)
         mins = r.uniform(-1, 1, (n, 3)).astype(np.float32)
         maxs = mins + r.uniform(0.3, 1.5, (n, 3)).astype(np.float32)
-        corners = np.asarray(tf_j.aabb_corners(jnp.asarray(mins)[:, None],
-                                               jnp.asarray(maxs)[:, None]))
+        corners = np.asarray(jax.jit(tf_j.aabb_corners)(
+            jnp.asarray(mins)[:, None], jnp.asarray(maxs)[:, None]))
         # Rotate about y around the box centre: the BEV quads are then
         # general convex quads, not axis-aligned rectangles.
         ang = r.uniform(-0.8, 0.8, n)
@@ -122,7 +125,9 @@ def test_segment_ops(masked):
                    (seg_j.segment_mean, seg_t.segment_mean),
                    (seg_j.segment_max, seg_t.segment_max)):
         _close(ft(_t(data), _t(ids), 10, mt),
-               fj(jnp.asarray(data), jnp.asarray(ids), 10, mj), 1e-5)
+               jax.jit(fj, static_argnums=2)(jnp.asarray(data),
+                                             jnp.asarray(ids), 10, mj),
+               1e-5)
 
 
 def _fit_problem(seed, n=300, n_valid=260, outliers=25):
@@ -143,8 +148,8 @@ def _fit_problem(seed, n=300, n_valid=260, outliers=25):
 def test_umeyama_similarity(method):
     src, tgt, valid = _fit_problem(6)
     w = valid.astype(np.float32)
-    fj = um_j.umeyama_similarity(jnp.asarray(src), jnp.asarray(tgt),
-                                 jnp.asarray(w), method)
+    fj = jax.jit(um_j.umeyama_similarity, static_argnums=3)(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(w), method)
     ft = um_t.umeyama_similarity(_t(src), _t(tgt), _t(w), method)
     for name in ("scale", "rotation", "translation"):
         _close(getattr(ft, name), getattr(fj, name), 1e-4)
@@ -157,8 +162,8 @@ def test_estimate_similarity_transform_with_injected_draws(method):
     iters, sample = 24, 10
     draws = np.asarray(jax.random.randint(key, (iters, sample), 0,
                                           jnp.iinfo(jnp.int32).max))
-    fj = jax.jit(lambda s, t, v, k: um_j.estimate_similarity_transform(
-        s, t, v, k, iters, sample, method=method))(
+    fj = jit_run(lambda s, t, v, k: um_j.estimate_similarity_transform(
+        s, t, v, k, iters, sample, method=method),
         jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(valid), key)
     ft = um_t.estimate_similarity_transform(
         _t(src), _t(tgt), _t(valid), _t(draws.astype(np.int64)),
@@ -168,8 +173,8 @@ def test_estimate_similarity_transform_with_injected_draws(method):
         _close(getattr(ft, name), getattr(fj, name), 1e-4)
     # The injected draws also pin the RANSAC inlier set itself.
     pass_t = jnp.float32(3.0)
-    inl_j, _ = jax.jit(lambda s, t, v, k: um_j.ransac_umeyama(
-        s, t, v, k, iters, sample, pass_t, pass_t / 100, method))(
+    inl_j, _ = jit_run(lambda s, t, v, k: um_j.ransac_umeyama(
+        s, t, v, k, iters, sample, pass_t, pass_t / 100, method),
         jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(valid), key)
     inl_t, _ = um_t.ransac_umeyama(_t(src), _t(tgt), _t(valid),
                                    _t(draws.astype(np.int64)),
@@ -216,8 +221,9 @@ def test_knn_outlier_plain_matches_jax_xla_and_pallas(case):
     cols, k = candidate_columns(len(pts), cand, 20)
     got = knn_mean_dists(_t(pts)[None], _t(valid)[None], cols, k)[0]
     cj = jnp.asarray(cols.numpy())
-    want = knn_mean_dists_pallas(jnp.asarray(pts), jnp.asarray(pts)[cj],
-                                 jnp.asarray(valid)[cj], cj, k,
+    want = knn_mean_dists_pallas(jnp.asarray(pts),
+                                 jnp.asarray(pts[cols.numpy()]),
+                                 jnp.asarray(valid[cols.numpy()]), cj, k,
                                  interpret=True)
     v = valid
     # The expanded d2 cancels: its rounding grows with |p|^2, so the
@@ -231,12 +237,13 @@ def test_knn_outlier_batched_matches_vmapped_jax():
     pts[:, 240:] *= 10.0
     valid = np.ones((3, 256), bool)
     valid[2, :200] = False                       # fewer than min_points
-    f = jax.vmap(lambda p, v: som_j(p, v, min_points=10, candidates=64,
-                                    approx=False, impl="xla"))
+    f = jax.jit(jax.vmap(lambda p, v: som_j(p, v, min_points=10,
+                                            candidates=64, approx=False,
+                                            impl="xla")))
     want = np.asarray(f(jnp.asarray(pts), jnp.asarray(valid)))
     got = som_t(_t(pts), _t(valid), min_points=100, candidates=64).numpy()
-    want_100 = np.asarray(jax.vmap(lambda p, v: som_j(
-        p, v, min_points=100, candidates=64, approx=False, impl="xla"))(
+    want_100 = np.asarray(jax.jit(jax.vmap(lambda p, v: som_j(
+        p, v, min_points=100, candidates=64, approx=False, impl="xla")))(
         jnp.asarray(pts), jnp.asarray(valid)))
     np.testing.assert_array_equal(got, want_100)
     got10 = som_t(_t(pts), _t(valid), min_points=10, candidates=64).numpy()

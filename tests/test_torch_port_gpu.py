@@ -281,3 +281,76 @@ def test_oracle_export_frame_on_the_card_matches_the_cpu():
             np.testing.assert_allclose(getattr(f_g, name),
                                        getattr(f_c, name), atol=1e-3,
                                        err_msg=name)
+
+
+def test_detector_import_round_trip_on_the_card(tmp_path):
+    """An import-mode detector on the card -> detectron2 .pth ->
+    `import-torch-ckpt` on the card -> the port's checkpoint: every tensor
+    bit-equal to the source."""
+    from mot3d_tpu_torch import cli
+    from mot3d_tpu_torch.config import Config
+    from mot3d_tpu_torch.importers.torch_ckpt import import_config
+    from mot3d_tpu_torch.importers.torch_export import (
+        export_detectron2_maskrcnn, save_torch_state_dict)
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+
+    dev = _cuda()
+    cfg = Config()
+    det = import_config(cfg.detection)
+    src = MaskRCNN(det, device=dev)
+    with torch.no_grad():   # the reference's voxel decoder is bias-free
+        for name, p in src.voxel_head.named_parameters():
+            if name.endswith("bias") and name.startswith("ConvTranspose_"):
+                p.zero_()
+    save_torch_state_dict(str(tmp_path / "m.pth"),
+                          export_detectron2_maskrcnn(src.state_dict(), det))
+    cli.main(["import-torch-ckpt", "--pth", str(tmp_path / "m.pth"), "--out",
+              str(tmp_path / "out")])
+    got = cli._init_detector(cfg.replace(detection=det),
+                             str(tmp_path / "out"), dev).state_dict()
+    want = src.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].is_cuda and torch.equal(got[k], v), k
+
+
+def test_siamese_step_on_the_card_matches_the_cpu(tmp_path):
+    """One siamese train step on two synthetic sequences on the card and on
+    the CPU from the same weights, with SGD at LR 1 (the new parameters are
+    the old ones minus the gradient; Adam's first step would turn rounding
+    of near-zero gradients into +-lr) and TF32 off: the same loss and
+    parameters within 1e-5 (float32, other summation orders)."""
+    from mot3d_tpu.config import Config as ConfigJ
+    from mot3d_tpu.config import TrackingConfig
+    from mot3d_tpu.data.synthetic import synthetic_sequence
+    from mot3d_tpu_torch.train.siamese_trainer import (SiameseTrainer,
+                                                       SiameseTrainState)
+    from mot3d_tpu_torch.train.tracking_trainer import sequences_to_batch
+    from torch_port_helpers import port_config
+
+    dev = _cuda()
+    cfg = port_config(ConfigJ().replace(tracking=TrackingConfig(
+        seq_len=3, max_instances_per_frame=4, max_frame_dist=1)))
+    seqs = [{k: np.asarray(v) for k, v in synthetic_sequence(
+        TrackingConfig(seq_len=3, max_instances_per_frame=4), seed=i,
+        num_objects=3)._asdict().items()} for i in range(2)]
+    out, tf32 = {}, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for d in ("cpu", dev):
+            st = SiameseTrainer(cfg, str(tmp_path / str(d)), device=d)
+            opt = torch.optim.SGD(st.model.parameters(), lr=1.0)
+            state = SiameseTrainState(st.model, opt,
+                                      torch.optim.lr_scheduler.LambdaLR(
+                                          opt, lambda n: 1.0))
+            state, metrics = st._step(False)(state, sequences_to_batch(seqs))
+            out[str(d)] = (float(metrics["siamese_loss"]),
+                           {k: v.cpu() for k, v in
+                            st.model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (l_c, p_c), (l_g, p_g) = out["cpu"], out["cuda"]
+    assert np.isfinite(l_g) and abs(l_g - l_c) <= 1e-5
+    for k, v in p_c.items():
+        np.testing.assert_allclose(p_g[k].numpy(), v.numpy(), atol=1e-5,
+                                   err_msg=k)

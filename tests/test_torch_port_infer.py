@@ -42,8 +42,9 @@ from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
 from mot3d_tpu_torch.parallel.infer_step import outputs_to_host
 from mot3d_tpu_torch.tracking.graph_builder import make_template
 from mot3d_tpu_torch.tracking.tracker import Tracker as TrackerHostT
-from torch_port_helpers import (port_config, random_params, randomise_affine,
-                                sequence_draws, tame_affine_backbone)
+from torch_port_helpers import (jit_run, port_config, random_params,
+                                randomise_affine, sequence_draws,
+                                tame_affine_backbone)
 
 torch.set_num_threads(1)
 
@@ -137,7 +138,7 @@ def _run_both(cfg, det_params, trk_params, arrays, key):
         step = step_j(MaskRCNNJ(det), TrackerJ(cfg.graph),
                       template_j(trk.seq_len, det.detections_per_image,
                                  trk.max_frame_dist), cfg)
-        want = jax.jit(step)(f64(det_params), f64(trk_params), BatchJ(
+        want = jit_run(step, f64(det_params), f64(trk_params), BatchJ(
             **{k: jnp.asarray(v) for k, v in arrays.items()},
             keys=key[None]))
         want = jax.device_get(want)

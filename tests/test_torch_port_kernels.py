@@ -34,10 +34,11 @@ def test_knn_plain_matches_pallas_interpret(name):
                             torch.from_numpy(cols), k).numpy()
     assert got.shape == valid.shape
     cj = jnp.asarray(cols)
+    keep = jax.jit(keep_j, static_argnums=(2, 3))
     for b in range(pts.shape[0]):
         want = np.asarray(knn_mean_dists_pallas(
-            jnp.asarray(pts[b]), jnp.asarray(pts[b])[cj],
-            jnp.asarray(valid[b])[cj], cj, k, interpret=True))
+            jnp.asarray(pts[b]), jnp.asarray(pts[b][cols]),
+            jnp.asarray(valid[b][cols]), cj, k, interpret=True))
         v = valid[b]
         np.testing.assert_allclose(got[b][v], want[v], rtol=1e-5, atol=1e-5,
                                    err_msg=f"{name}[{b}]")
@@ -45,8 +46,8 @@ def test_knn_plain_matches_pallas_interpret(name):
         for min_points in (1, 100):
             kt = keep_t(torch.from_numpy(got[b]), torch.from_numpy(v), 2.0,
                         min_points).numpy()
-            kj = np.asarray(keep_j(jnp.asarray(want), jnp.asarray(v), 2.0,
-                                   min_points))
+            kj = np.asarray(keep(jnp.asarray(want), jnp.asarray(v), 2.0,
+                                 min_points))
             np.testing.assert_array_equal(kt, kj, err_msg=f"{name}[{b}]")
 
 

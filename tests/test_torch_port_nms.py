@@ -53,8 +53,8 @@ def _pallas_interpret(boxes, scores, valid, thresh):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_exact_nms_matches_jax_and_pallas(name):
     boxes, scores, valid, thresh = CASES[name]
-    want = np.asarray(jax.vmap(
-        lambda b, s, v: nms_j.nms_mask(b, s, v, thresh, exact=True))(
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda b, s, v: nms_j.nms_mask(b, s, v, thresh, exact=True)))(
         *(jnp.asarray(a.reshape((-1,) + a.shape[valid.ndim - 1:]))
           for a in (boxes, scores, valid)))).reshape(valid.shape)
     np.testing.assert_array_equal(
@@ -102,9 +102,9 @@ def test_classwise_nms_matches_jax():
     scores = np.round(rng.uniform(size=(2, p, c)), 2).astype(np.float32)
     valid = rng.uniform(size=(2, p, c)) < 0.8
     for exact in (True, False):
-        want = np.stack([np.asarray(nms_j.classwise_nms_mask(
-            jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
-            jnp.asarray(valid[i]), 0.4, exact)) for i in range(2)])
+        want = np.asarray(jax.jit(jax.vmap(
+            lambda b, s, v: nms_j.classwise_nms_mask(b, s, v, 0.4, exact)))(
+            *map(jnp.asarray, (boxes, scores, valid))))
         got = nms_t.classwise_nms_mask(*(to_torch(a) for a in
                                          (boxes, scores, valid)), 0.4, exact)
         np.testing.assert_array_equal(got.numpy(), want)

@@ -26,7 +26,7 @@ from mot3d_tpu.pose.extraction import grid_extract as grid_j
 from mot3d_tpu.pose.pipeline import postprocess_frame as post_j
 from mot3d_tpu_torch.pose.extraction import grid_extract as grid_t
 from mot3d_tpu_torch.pose.pipeline import postprocess_frame as post_t
-from torch_port_helpers import port_config, slot_draws, to_torch
+from torch_port_helpers import jit_run, port_config, slot_draws, to_torch
 
 torch.set_num_threads(1)
 
@@ -87,6 +87,31 @@ def test_grid_extract_matches_jax_grid_and_pallas(seed):
         np.testing.assert_allclose(feats_t.numpy(), np.asarray(feats_j),
                                    atol=2e-5, rtol=0)
     assert np.isfinite(feats_t.numpy()).all()
+
+
+@pytest.mark.parametrize("grid", [32, 33])
+def test_grid_extract_in_float64_matches_jax_x64(grid):
+    """In float64 the backprojection of the sampled integer pixels runs in
+    float64, as JAX's does under x64 (a float32 pixel index minus a 0-dim
+    float64 intrinsic stays float32 under torch's promotion: 4e-8 off),
+    so the two agree to float64 rounding; tests/pose_gap_float64.py then
+    finds the pose stages equal per instance in float64."""
+    nocs, masks, boxes, _, _ = (a.astype(np.float64)
+                                for a in _frame(seed=2))
+    boxes += 0.37       # sample positions off the float32 grid of pixels
+    # Depth and intrinsics that float32 cannot hold exactly.
+    depth = np.random.default_rng(3).uniform(1.5, 3.0, (64, 64)) / 3.0
+    intr = np.array([[71.3, 0, 31.7], [0, 69.9, 30.2], [0, 0, 1]])
+    feats_t, valid_t = grid_t(*map(to_torch, (nocs, masks, boxes, depth,
+                                              intr)), grid=grid)
+    with jax.enable_x64(True):
+        feats_j, valid_j = jax.jit(jax.vmap(lambda n, m, b: grid_j(
+            n, m, b, jnp.asarray(depth), jnp.asarray(intr), grid=grid)))(
+            jnp.asarray(nocs), jnp.asarray(masks), jnp.asarray(boxes))
+        feats_j = np.asarray(feats_j)
+    assert feats_j.dtype == np.float64 and valid_t.any()
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    np.testing.assert_allclose(feats_t.numpy(), feats_j, rtol=0, atol=1e-12)
 
 
 def test_grid_extract_batched_over_frames():
@@ -181,9 +206,9 @@ def test_postprocess_frame_matches_jax(extraction, use_gt_gate):
              "det_masks", "det_voxels", "det_nocs", "gt_boxes2d", "gt_valid",
              "depth", "campose")
     with _pallas_interpret():
-        out_j = jax.jit(lambda *a: post_j(*a, cfg_j, use_gt_gate=use_gt_gate))(
-            *(jnp.asarray(sc[n]) for n in names), intr,
-            jnp.asarray(sc["gt_boxes3d_cropped"]), key)
+        out_j = jit_run(lambda *a: post_j(*a, cfg_j, use_gt_gate=use_gt_gate),
+                        *(jnp.asarray(sc[n]) for n in names), intr,
+                        jnp.asarray(sc["gt_boxes3d_cropped"]), key)
     draws = slot_draws(key, 4, cfg_j.pose.ransac_iters,
                        cfg_j.pose.ransac_sample_size)
     out_t = post_t(*(to_torch(sc[n]) for n in names), to_torch(intr),

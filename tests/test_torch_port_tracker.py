@@ -8,6 +8,9 @@ duplicate identities in a frame.  Trajectories must be equal as lists
 (frame, identity, class, location bit for bit); summaries equal to 1e-12.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,13 +57,20 @@ def _assert_same_summary(got, want):
         assert abs(got[key] - want[key]) <= 1e-12, key
 
 
+@functools.lru_cache(maxsize=1)
+def _build_graph_j():
+    """JAX's graph builder at KW, compiled once for every case."""
+    tj, _ = _templates()
+    return jax.jit(lambda *a: build_graph_j(tj, TCFG_J, *a))
+
+
 def _synthetic(edges, seed, **kw):
     """A synthetic sequence, its JAX-built graph identities, and edge
     probabilities: the oracle's, none, or the oracle's with noise."""
     seq = synthetic_sequence(TCFG_J, seed=seed, num_objects=3, **kw)
     tj, _ = _templates()
-    graph = build_graph_j(
-        tj, TCFG_J, jnp.array(seq.det_valid), jnp.array(seq.translations),
+    graph = _build_graph_j()(
+        jnp.array(seq.det_valid), jnp.array(seq.translations),
         jnp.array(seq.rotations), jnp.array(seq.scales),
         jnp.array(seq.pred_boxes), jnp.array(seq.gt_boxes),
         jnp.array(seq.gt_ids), jnp.array(seq.gt_valid))

@@ -20,7 +20,7 @@ from mot3d_tpu.tracking import graph_builder as gb_j
 from mot3d_tpu_torch.importers.flax_params import tracker_state_dict
 from mot3d_tpu_torch.models.mpn import TrackerModel as TrackerT
 from mot3d_tpu_torch.tracking import graph_builder as gb_t
-from torch_port_helpers import port_config, to_torch
+from torch_port_helpers import port_config, random_params, to_torch
 
 torch.set_num_threads(1)
 
@@ -92,7 +92,7 @@ def test_tracker_model_matches_jax_with_converted_params():
     mask = rng.uniform(size=e) > 0.3
     args = (jnp.asarray(vox), jnp.asarray(src), jnp.asarray(dst),
             jnp.asarray(attr), jnp.asarray(mask))
-    params = jax.jit(model_j.init)(jax.random.PRNGKey(0), *args)
+    params = random_params(model_j, *args)
     logits_j = jax.jit(model_j.apply)(params, *args)
 
     cfg_t = port_config(Config(graph=gcfg))
@@ -108,6 +108,13 @@ def test_tracker_model_matches_jax_with_converted_params():
 
 
 def test_tracker_rejects_unported_options():
+    """Every GraphConfig option of the JAX package is ported (time-aware
+    message passing since its flow MLPs landed); an aggregation no package
+    knows is refused."""
     cfg = port_config(Config(graph=GraphConfig(time_aware_mp=True)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrackerT(cfg.graph, device="cpu")
+    model = TrackerT(cfg.graph, device="cpu")
+    assert {"flow_in", "flow_out", "node_fuse"} <= {
+        n for n, _ in model.graph_net.named_children()}
+    bad = port_config(Config(graph=GraphConfig(node_agg_fn="median")))
+    with pytest.raises(ValueError, match="node_agg_fn"):
+        TrackerT(bad.graph, device="cpu")

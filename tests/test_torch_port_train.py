@@ -68,8 +68,8 @@ from mot3d_tpu_torch.train.combined_trainer import (CombinedTrainer,
                                                     tracking_optimizer)
 from mot3d_tpu_torch.train.schedules import warmup_multistep
 from test_torch_port_pose import _scene
-from torch_port_helpers import (port_config, random_params, sequence_draws,
-                                slot_draws, to_torch)
+from torch_port_helpers import (jit_run, port_config, random_params,
+                                sequence_draws, slot_draws, to_torch)
 
 torch.set_num_threads(1)
 
@@ -112,11 +112,11 @@ def test_rpn_targets_and_losses_match_jax(case):
     with jax.enable_x64(True):
         rand = np.stack([np.asarray(jax.random.uniform(k, (a,)))
                          for k in keys])
-        tj = jax.jit(jax.vmap(lambda g, v: rpn_j.label_anchors(
+        tj = jit_run(jax.vmap(lambda g, v: rpn_j.label_anchors(
             jnp.asarray(anchors), g, v, det.rpn_pos_iou,
-            det.rpn_neg_iou)))(jnp.asarray(gt), jnp.asarray(valid))
-        sel_j = jax.jit(jax.vmap(lambda lab, k: rpn_j.subsample_labels(
-            lab, k, det.rpn_batch_per_image, det.rpn_positive_fraction)))(
+            det.rpn_neg_iou)), jnp.asarray(gt), jnp.asarray(valid))
+        sel_j = jit_run(jax.vmap(lambda lab, k: rpn_j.subsample_labels(
+            lab, k, det.rpn_batch_per_image, det.rpn_positive_fraction)),
             tj.labels, keys)
 
         def loss_j(o, d):
@@ -126,9 +126,9 @@ def test_rpn_targets_and_losses_match_jax(case):
                 o, d, tj, keys)
             return ol.sum() + 2.0 * bl.sum(), (ol, bl)
 
-        (lj, (olj, blj)), gj = jax.jit(jax.value_and_grad(
-            loss_j, argnums=(0, 1), has_aux=True))(jnp.asarray(obj),
-                                                   jnp.asarray(deltas))
+        (lj, (olj, blj)), gj = jit_run(jax.value_and_grad(
+            loss_j, argnums=(0, 1), has_aux=True), jnp.asarray(obj),
+            jnp.asarray(deltas))
 
     anc_t = torch.from_numpy(anchors).double()
     tt = rpn_t.label_anchors(anc_t, to_torch(gt), to_torch(valid),
@@ -172,8 +172,9 @@ def test_sample_rois_matches_jax(case):
     classes = rng.integers(0, det.num_classes, (2, m)).astype(np.int32)
     keys = jax.random.split(jax.random.PRNGKey(5), 2)
     with jax.enable_x64(True):
-        want = jax.jit(jax.vmap(lambda *a: mrcnn_j.sample_rois(*a, det)))(
-            *map(jnp.asarray, (props, pvalid, gt, classes, gvalid)), keys)
+        want = jit_run(jax.vmap(lambda *a: mrcnn_j.sample_rois(*a, det)),
+                       *map(jnp.asarray, (props, pvalid, gt, classes,
+                                          gvalid)), keys)
         rand = np.stack([np.asarray(jax.random.uniform(k, (p + m,)))
                          for k in keys])
     got = mrcnn_t.sample_rois(*map(to_torch, (props, pvalid, gt, classes,
@@ -193,9 +194,9 @@ def test_voxel_loss_matches_jax(case):
     gt = (rng.uniform(size=(5, 32, 32, 32)) < 0.3).astype(np.float64)
     w = np.float64([1, 0, 1, 1, 0]) if case == "mixed" else np.zeros(5)
     with jax.enable_x64(True):
-        (lj, iou_j), gj = jax.jit(jax.value_and_grad(
+        (lj, iou_j), gj = jit_run(jax.value_and_grad(
             lambda x: vox_j.voxel_loss(x, jnp.asarray(gt), jnp.asarray(w)),
-            has_aux=True))(jnp.asarray(logits))
+            has_aux=True), jnp.asarray(logits))
     x = to_torch(logits).requires_grad_()
     lt, iou_t = vox_t.voxel_loss(x, to_torch(gt), to_torch(w))
     lt.backward()
@@ -231,10 +232,10 @@ def test_nocs_losses_match_jax(case):
     with jax.enable_x64(True):
         ja = [jnp.asarray(a) for a in args]
         sym = jnp.asarray([1], jnp.int32)
-        lj, gj = jax.jit(jax.value_and_grad(lambda x: nocs_j.nocs_loss(
-            x, *ja, sym)))(jnp.asarray(pred))
-        bj, gbj = jax.jit(jax.value_and_grad(lambda x: nocs_j.nocs_bin_loss(
-            x, *ja, sym, num_bins=8)))(jnp.asarray(logits))
+        lj, gj = jit_run(jax.value_and_grad(lambda x: nocs_j.nocs_loss(
+            x, *ja, sym)), jnp.asarray(pred))
+        bj, gbj = jit_run(jax.value_and_grad(lambda x: nocs_j.nocs_bin_loss(
+            x, *ja, sym, num_bins=8)), jnp.asarray(logits))
     ta = [to_torch(a) for a in args]
     x = to_torch(pred).requires_grad_()
     lt = nocs_t.nocs_loss(x, *ta, (1,))
@@ -469,15 +470,20 @@ def test_adamw_update_matches_optax(jax_window, port_window):
     c = cfg_t.combined
     opts = (optax.adamw(c.detection_lr, weight_decay=c.detection_weight_decay),
             optax.adamw(c.tracking_lr, weight_decay=c.tracking_weight_decay))
+    # AdamW is elementwise (no mask, no per-leaf norm), so optax runs on
+    # each model's leaves flattened into one vector: one small compile
+    # instead of one over every leaf of the detector.
+    flat = [_ravel(f64(t)) for t in (j["det_params"], j["trk_params"])]
     with jax.enable_x64(True):
         @jax.jit
         def update(params, grads):
             return [optax.apply_updates(pp, o.update(g, o.init(pp), pp)[0])
                     for o, pp, g in zip(opts, params, grads)]
 
-        want = jax.device_get(update(
-            [f64(j["det_params"]), f64(j["trk_params"])],
-            [f64(g) for g in j["grads"]]))
+        new = jax.device_get(update(
+            [f[0] for f in flat],
+            [_ravel(f64(g))[0] for g in j["grads"]]))
+    want = [f[1](v) for f, v in zip(flat, new)]
     for model, make, grads, w, to_sd in (
             (p["det"], detection_optimizer, j["grads"][0], want[0],
              mask_rcnn_state_dict),
@@ -493,6 +499,19 @@ def test_adamw_update_matches_optax(jax_window, port_window):
         want_sd = to_sd(w, cfg_t)
         for name, param in model.named_parameters():
             _close(param, want_sd[name], rtol=1e-12, atol=1e-15, what=name)
+
+
+def _ravel(tree):
+    """(the leaves of `tree` in one float64 vector, vector -> tree)."""
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+
+    def unravel(vec):
+        parts = np.split(np.asarray(vec), np.cumsum(
+            [np.size(x) for x in leaves])[:-1])
+        return jax.tree_util.tree_unflatten(
+            treedef, [p.reshape(np.shape(x)) for p, x in zip(parts, leaves)])
+
+    return np.concatenate([np.ravel(x) for x in leaves]), unravel
 
 
 # ------------------------------------------- differentiable pose tail
@@ -545,9 +564,9 @@ def test_differentiable_pose_tail_gradient_matches_jax(solver):
         return mpn_j.tracker_loss(logits, g.targets, g.edge_mask)
 
     with jax.enable_x64(True):
-        lj, (g_nocs, g_par) = jax.jit(jax.value_and_grad(
-            loss_j, argnums=(0, 1)))(jnp.asarray(sc["det_nocs"]),
-                                     f64(trk_params))
+        lj, (g_nocs, g_par) = jit_run(jax.value_and_grad(
+            loss_j, argnums=(0, 1)), jnp.asarray(sc["det_nocs"]),
+            f64(trk_params))
         g_nocs, g_par = jax.device_get((g_nocs, g_par))
         draws = np.stack([slot_draws(k, i, cfg.pose.ransac_iters,
                                      cfg.pose.ransac_sample_size)
@@ -606,10 +625,9 @@ def test_tracking_step_matches_jax(seed):
         jnp.zeros((e2, cfg.graph.edge_in_dim)), jnp.zeros(e2, bool), seed=4)
     with jax.enable_x64(True):
         sgd = optax.sgd(1.0)
-        step_j = jax.jit(ts_j.make_tracking_train_step(
-            mpn_j.TrackerModel(cfg.graph), template_j(*tmpl_args), cfg, sgd))
         p64 = f64(params)
-        state, metrics = step_j(
+        state, metrics = jit_run(ts_j.make_tracking_train_step(
+            mpn_j.TrackerModel(cfg.graph), template_j(*tmpl_args), cfg, sgd),
             ts_j.TrackingTrainState(p64, sgd.init(p64), jnp.zeros((), int)),
             ts_j.TrackingBatch(**{k: jnp.asarray(v)
                                   for k, v in batch.items()}))

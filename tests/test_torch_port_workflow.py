@@ -53,6 +53,7 @@ from mot3d_tpu_torch.importers.flax_params import (import_train_state,
 from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
 from mot3d_tpu_torch.train.detection_trainer import DetectionTrainer
 from mot3d_tpu_torch.train.tracking_trainer import TrackingTrainer
+from test_torch_port_visualise import _assert_same_tree
 from torch_port_helpers import port_config, slot_draws
 
 torch.set_num_threads(1)
@@ -195,7 +196,9 @@ def _synthetic(cfg, n, seed0):
 def test_tracking_trainer_epoch_and_validate_match_jax(tmp_path):
     """One epoch over three sequences (batch 1, the seeded permutation
     stream) and validation, from the same initial state carried over from
-    JAX's trainer: equal losses, parameters and MOTA summary."""
+    JAX's trainer: equal losses, parameters and MOTA summary; then
+    `inference(export_dir=...)` writes the same file tree, byte for byte,
+    as JAX's `validate(export_dir=...)`."""
     cfg = _tiny()
     seqs = {"train": _synthetic(cfg, 3, 0), "val": _synthetic(cfg, 2, 100)}
     with jax.enable_x64(True):
@@ -207,6 +210,8 @@ def test_tracking_trainer_epoch_and_validate_match_jax(tmp_path):
         res_j = tj.train(seqs["train"], seqs["val"], num_epochs=1)
         state_j = jax.device_get(tj.state)
         opt0 = jax.device_get(opt0)
+        vis_j = tj.validate(seqs["val"], classwise=True,
+                            export_dir=str(tmp_path / "vis_j"))
 
     tt = TrackingTrainer(port_config(cfg), str(tmp_path / "t"),
                          device="cpu")
@@ -227,8 +232,13 @@ def test_tracking_trainer_epoch_and_validate_match_jax(tmp_path):
         _close(opt[i]["exp_avg"], mu[name], rtol=1e-9, atol=1e-6 * scale,
                what=name)
         _close(p.detach(), want[name], rtol=1e-9, atol=1e-7, what=name)
-    with pytest.raises(NotImplementedError, match="Visualise"):
-        tt.inference(seqs["val"], export_dir=str(tmp_path / "vis"))
+    res_vis = tt.inference(seqs["val"], export_dir=str(tmp_path / "vis"))
+    assert {k: res_vis[k] for k in res_t} == res_t
+    for k, v in vis_j.items():
+        assert res_vis[k] == pytest.approx(float(v), rel=1e-9, abs=1e-12), k
+    _assert_same_tree(tmp_path / "vis", tmp_path / "vis_j")
+    for i in range(len(seqs["val"])):
+        assert (tmp_path / "vis" / f"seq_{i:03d}" / "replay.html").exists()
 
 
 # ----------------------------------------------------------------- CLI
@@ -251,9 +261,9 @@ def _overrides(cfg: Config):
 def test_cli_runs_the_workflow_on_the_cpu(root, tmp_path, capsys):
     """train-detection -> export-detections (a subprocess of
     `python -m mot3d_tpu_torch.cli`, oracle) -> train-tracking ->
-    infer-tracking -> train-combined, with --device cpu and tiny
-    overrides; --export-vis and the subcommands not ported raise; without
-    a checkpoint infer-tracking refuses random weights."""
+    infer-tracking (also with --export-vis) -> train-combined, with
+    --device cpu and tiny overrides; the subcommand not ported raises;
+    without a checkpoint infer-tracking refuses random weights."""
     cfg = _tiny()
     ov = _overrides(port_config(cfg.replace(
         combined=dataclasses.replace(cfg.combined, checkpoint_period=1),
@@ -285,12 +295,12 @@ def test_cli_runs_the_workflow_on_the_cpu(root, tmp_path, capsys):
               "--ckpt", str(out / "trk"), "--out", str(out / "ev"), *dev,
               *ov])
     assert "restored best-mota checkpoint" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Visualise"):
-        cli.main(["infer-tracking", "--data", str(out / "h5" / "test"),
-                  "--ckpt", str(out / "trk"), "--export-vis", *dev, *ov])
+    cli.main(["infer-tracking", "--data", str(out / "h5" / "test"),
+              "--ckpt", str(out / "trk"), "--out", str(out / "ev"),
+              "--export-vis", *dev, *ov])
+    assert (out / "ev" / "vis" / "seq_000" / "replay.html").exists()
     cli.main(["train-combined", "--data", root, "--out", str(out / "comb"),
               "--max-iter", "1", "--det-ckpt", str(out / "det"), *dev, *ov])
     assert os.path.exists(out / "comb" / "ckpt" / "step_1.pt")
-    for cmd in ("train-siamese", "infer-office", "import-torch-ckpt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main([cmd, *dev])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(["infer-office", *dev])

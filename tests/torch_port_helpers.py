@@ -12,6 +12,21 @@ import torch
 from mot3d_tpu_torch import config as port_cfg
 
 
+# The JAX oracles of the parity tests are compiled once and run once or a
+# few times: at XLA's CPU backend optimization level 1 those whose run is
+# short (inference, the pose stage, small gradients) compile in about half
+# the time of the default level and compute the same values (the same HLO,
+# lowered with fewer LLVM passes).  A long run (the whole window's
+# gradient) is slower there: it keeps the default.
+FAST_COMPILE = {"xla_backend_optimization_level": 1}
+
+
+def jit_run(fn, *args):
+    """`jax.jit(fn)(*args)`, compiled with `FAST_COMPILE`."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options=FAST_COMPILE)(*args)
+
+
 def port_config(cfg):
     """mot3d_tpu Config -> the same values as a mot3d_tpu_torch Config."""
     sections = {}

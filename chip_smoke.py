@@ -71,9 +71,28 @@ Phases, one JSON line each; any failure exits non-zero:
      setups (default, no_pose, use_triplet, use_triplet on precomputed
      features): ms per step, first and last epoch loss, MOTA, card against
      CPU MOTA on one sequence, inference with `export_dir`;
+ 14. the office path (`office`): a synthetic office tree in the reader's
+     on-disk format (2 scenes of 25 frames, 640 x 480 PNGs, 8-bit depth,
+     TUM fr1 intrinsics, person masks on one scene) through
+     `office_inference` with the main path's detector (score gate open,
+     mask predictor raised), heuristic and F2F mode: a warm-up scene, then
+     both scenes timed (frames/s, seconds by stage, peak memory; K1 2
+     launches per frame in heuristic mode, 0 in F2F mode), K1 bit-equal on
+     one office frame's inputs, card against CPU on two frames, and
+     `infer-office` in process on a checkpoint of that detector
+     (`--tracker heuristic --fuse --fuse-shapes --mask-person` and
+     `--tracker f2f --fuse`: trajectories.json and replay page per scene);
+ 15. `full_extraction`: the main path's sequences with
+     pose.extraction="full" (stage seconds, frames/s, peak memory, K1 2
+     launches per sequence) and the gap to grid mode on the same
+     detections;
+ 16. `bf16`: the main path with detection.compute_dtype="bfloat16" on the
+     same weights, beside float32 in turns (detector seconds, frames/s,
+     peak memory), FPN features and kept detections against float32
+     (BF16_GATES), float32 inputs to the pose stage;
 then the kernels line (with each kernel's launches on the training path,
-in the workflow and on the reference-weights path), the nvidia-smi line
-and the final status line.
+in the workflow, on the reference-weights path, the office path and with
+"full" extraction), the nvidia-smi line and the final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
 With --kernels-only it stops after phase 4: copied into another checkout
@@ -898,24 +917,21 @@ def phase_turns(steps, seqs, draws, frames):
 def _train_frames(rng, cfg, cam_x=0.0):
     """One synthetic sequence of `_sequence` as training frames: each
     object also gets its mask (its 2D box), a 32^3 solid-box voxel grid
-    and a 28 x 28 NOCS coordinate ramp with a class, as the JAX package's
-    `data/synthetic_detection.py` draws them (copied here, not imported).
-    Identities are rolled by one per frame, as `__graft_entry__.py` rolls
-    them: every cross-frame edge is then a negative, so the balanced BCE
-    has pos_weight 1 and a non-zero value."""
+    and a 28 x 28 NOCS coordinate ramp with a class, as the port's
+    `data/synthetic_detection.py` draws them.  Identities are rolled by
+    one per frame, as `__graft_entry__.py` rolls them: every cross-frame
+    edge is then a negative, so the balanced BCE has pos_weight 1 and a
+    non-zero value."""
     from mot3d_tpu_torch.data.samples import DetectionSample
+    from mot3d_tpu_torch.data.synthetic_detection import (class_voxels,
+                                                          nocs_ramp)
 
     seq = _sequence(rng, cfg, cam_x)
     det = cfg.detection
     t, m = seq["gt_valid2d"].shape
-    ramp = np.linspace(0.1, 0.9, 28, dtype=np.float32)
-    nocs = np.stack([np.tile(ramp, (28, 1)), np.tile(ramp[:, None], (1, 28)),
-                     np.full((28, 28), 0.5, np.float32)], -1)
+    nocs = nocs_ramp(28)
     classes = (np.arange(m) % det.num_classes).astype(np.int32)
-    voxels = np.zeros((m, 32, 32, 32), np.float32)
-    for j, c in enumerate(classes):
-        d = 8 + 2 * (c % 6)
-        voxels[j, 4:4 + d, 4:28, 6:26] = 1.0
+    voxels = np.stack([class_voxels(int(c)) for c in classes])
     frames = []
     for f in range(t):
         masks = np.zeros((m, det.pad_height, det.pad_width), np.float32)
@@ -1971,6 +1987,406 @@ def phase_reference_weights(seed, cfg, trk, template, seqs, draws, trk_seqs,
     return res["detector"]["launches"]
 
 
+# ------------------------------------------------------------ office path
+
+OFFICE_SCENES, OFFICE_FRAMES = 2, 25
+# Each in-process CLI run: frames per scene, and detections per frame of
+# the heuristic run (it writes a posed-shape OBJ per detection and a fused
+# one per trajectory, ~0.6 s each on the host).
+OFFICE_CLI_FRAMES, OFFICE_CLI_SHAPES = 2, 2
+# bf16 against float32 on phase main's random weights: bfloat16 rounding
+# grows through R50-FPN's random layers (0.11-0.19 relative on the tiny
+# CPU detector, tests/test_torch_port_detector.py).
+# At full width they stay small: 0.024-0.029 relative and 83% of the
+# float32 detections kept at --seed 0 (NVIDIA H100 80GB HBM3, 700 W); the
+# gates leave a margin of about 3x and 0.2.
+BF16_GATES = {"fpn_relative_error_max": 0.1, "kept_matched_share_min": 0.6}
+
+
+def _office_model(cfg, det, dev):
+    """The office detector: phase_main's weights, the score gate opened and
+    the mask predictor raised (random weights leave every mask probability
+    under 0.5), as phase `train` opens them; the voxel head's last layer
+    answers "occupied" everywhere, so the CLI's posed-shape OBJs are cubes
+    (a random occupancy grid costs seconds of marching tetrahedra on the
+    host)."""
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+
+    cfg_o = cfg.replace(detection=dataclasses.replace(
+        cfg.detection, score_thresh_test=-1.0))
+    model = MaskRCNN(cfg_o.detection, device=dev)
+    model.load_state_dict(det.state_dict())
+    with torch.no_grad():
+        model.mask_head.Conv_4.bias.fill_(3.0)
+        model.voxel_head.ConvTranspose_4.weight.zero_()
+        model.voxel_head.ConvTranspose_4.bias.fill_(3.0)
+    return cfg_o, model.eval()
+
+
+def _office_run(cfg, model, ds, scene, mode, dev, seed):
+    """One scene through `office_inference` (stage seconds, K1 launches)
+    and the CLI's visual export without shapes (trajectory PLYs and the
+    replay page) under build/."""
+    from mot3d_tpu_torch.data.office import office_inference
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.tracking.visualise import export_sequence
+
+    stage = {}
+    n1 = k1.launches.count
+    sync()
+    t0 = time.perf_counter()
+    trajs, frames = office_inference(cfg, model, ds, scene, tracker=mode,
+                                     device=dev, stage_s=stage,
+                                     generator=torch.Generator(dev)
+                                     .manual_seed(seed))
+    t1 = time.perf_counter()
+    export_sequence(f"build/chip_smoke_office/export_{mode}_{scene}", trajs)
+    stage["export_s"] = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    return dict(stage_s=stage, seconds=total,
+                frames_per_s=len(frames) / (t1 - t0),
+                k1_launches=k1.launches.count - n1,
+                detections=sum(len(f) for f in frames),
+                trajectories=len(trajs)), trajs, frames
+
+
+def _office_card_vs_cpu(cfg, model, ds, scene, dev, seed):
+    """Two frames of `scene` on the card and on the CPU, the same weights
+    and draws, deterministic algorithms and TF32 off.  Gates: the same
+    detections (classes equal, detector boxes within 1e-2 px), F2F centres
+    within 1e-3 depth units, heuristic pose detections per frame equal and
+    their world boxes (AABB of the kept depth points) within 1e-3 in the
+    median.  Rotations and translations of the random NOCS head's fits are
+    ill-conditioned in float32, so their largest gaps are reported, not
+    gated."""
+    from mot3d_tpu_torch.data.office import office_inference
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+
+    cpu = MaskRCNN(model.cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    i = cfg.detection.detections_per_image
+    draws = torch.randint(0, 2 ** 31 - 1, (2, i, cfg.pose.ransac_iters,
+                                           cfg.pose.ransac_sample_size),
+                          generator=torch.Generator().manual_seed(seed))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        with _deterministic():
+            for mode in ("heuristic", "f2f"):
+                for name, m, d in (("cpu", cpu, "cpu"), ("card", model, dev)):
+                    out[mode, name] = office_inference(
+                        cfg, m, ds, scene, max_frames=2, tracker=mode,
+                        device=d, draws=draws)[1]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    res = {}
+    f2f_c, f2f_g = out["f2f", "cpu"], out["f2f", "card"]
+    check([[d["cls"] for d in f] for f in f2f_c]
+          == [[d["cls"] for d in f] for f in f2f_g],
+          "office card vs CPU: F2F detections differ")
+    box = [np.abs(a["box2d"] - b["box2d"]).max()
+           for fa, fb in zip(f2f_c, f2f_g) for a, b in zip(fa, fb)]
+    cen = [np.abs(a["loc"] - b["loc"]).max()
+           for fa, fb in zip(f2f_c, f2f_g) for a, b in zip(fa, fb)]
+    res["f2f_detections"] = sum(len(f) for f in f2f_c)
+    res["detector_box_max_abs_px"] = float(max(box, default=0.0))
+    res["f2f_centre_max_abs"] = float(max(cen, default=0.0))
+    check(res["detector_box_max_abs_px"] <= 1e-2,
+          f"office card vs CPU: boxes differ by "
+          f"{res['detector_box_max_abs_px']} px")
+    check(res["f2f_centre_max_abs"] <= 1e-3,
+          f"office card vs CPU: F2F centres differ by "
+          f"{res['f2f_centre_max_abs']}")
+    h_c, h_g = out["heuristic", "cpu"], out["heuristic", "card"]
+    check([len(f) for f in h_c] == [len(f) for f in h_g],
+          "office card vs CPU: heuristic pose detections per frame differ")
+    pairs = [(a, b) for fa, fb in zip(h_c, h_g) for a, b in zip(fa, fb)]
+    wbox = [float(np.abs(a["box"] - b["box"]).max()) for a, b in pairs]
+    res["heuristic_detections"] = len(pairs)
+    res["world_box_median_abs"] = float(np.median(wbox)) if wbox else 0.0
+    res["world_box_max_abs"] = max(wbox, default=0.0)
+    res["loc_max_abs"] = max((float(np.abs(a["loc"] - b["loc"]).max())
+                              for a, b in pairs), default=0.0)
+    res["euler_max_abs"] = max((float(np.abs(a["euler"] - b["euler"]).max())
+                                for a, b in pairs), default=0.0)
+    check(res["world_box_median_abs"] <= 1e-3,
+          f"office card vs CPU: world boxes differ by "
+          f"{res['world_box_median_abs']} in the median")
+    res["tolerance"] = ("classes equal, detector boxes <= 1e-2 px, F2F "
+                        "centres <= 1e-3, pose detections per frame equal, "
+                        "world boxes <= 1e-3 in the median")
+    return res
+
+
+def phase_office(seed, cfg, det, smi, dev):
+    """The office path at the default Config(): a synthetic office tree in
+    the reader's on-disk format (2 scenes of 25 frames, 640 x 480 PNGs,
+    8-bit depth, TUM fr1 intrinsics, person masks on one scene) through
+    `office_inference` in heuristic and F2F mode (a warm-up scene, then
+    both scenes timed: frames/s, seconds by stage, peak memory, K1 2
+    launches per frame in heuristic mode and 0 in F2F mode), K1 bit-equal
+    to its plain version on one office frame's inputs, card against CPU on
+    two frames, and the `infer-office` CLI in process on a checkpoint of
+    the office detector (OFFICE_CLI_FRAMES frames of each scene)."""
+    import shutil
+
+    from mot3d_tpu_torch import cli
+    from mot3d_tpu_torch.data.fixtures import write_office_fixture
+    from mot3d_tpu_torch.data.office import OfficeDataset, office_inference
+    from mot3d_tpu_torch.geometry import outlier
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+    from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.train.checkpoints import CheckpointManager
+    from mot3d_tpu_torch.train.combined_trainer import detection_optimizer
+    from mot3d_tpu_torch.train.detection_trainer import DetectionTrainState
+
+    work = "build/chip_smoke_office"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    scenes = write_office_fixture(f"{work}/data", OFFICE_SCENES,
+                                  OFFICE_FRAMES, seed)
+    res = {"phase": "office", "card": smi,
+           "fixture_s": time.perf_counter() - t0,
+           "scenes": OFFICE_SCENES, "frames_per_scene": OFFICE_FRAMES}
+    cfg_o, model = _office_model(cfg, det, dev)
+    ds = OfficeDataset(f"{work}/data",
+                       (cfg.camera.height, cfg.camera.width))
+    launches = {"knn_outlier": 0, "pose_extract": 0, "nms": 0}
+    for mode in ("heuristic", "f2f"):
+        _office_run(cfg_o, model, ds, scenes[0], mode, dev, seed)  # warm-up
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches.reset()
+        k2.launches.reset()
+        k3.launches.reset()
+        runs = [_office_run(cfg_o, model, ds, s, mode, dev, seed)[0]
+                for s in scenes]
+        for name, mod in (("knn_outlier", k1), ("pose_extract", k2),
+                          ("nms", k3)):
+            launches[name] += mod.launches.count
+        want = 2 * OFFICE_FRAMES if mode == "heuristic" else 0
+        check(all(r["k1_launches"] == want for r in runs),
+              f"office {mode}: K1 launched "
+              f"{[r['k1_launches'] for r in runs]} times per scene, "
+              f"expected {want}")
+        check(all(r["detections"] > 0 for r in runs),
+              f"office {mode}: no detections")
+        res[mode] = {
+            "frames_per_s_median": float(np.median(
+                [r["frames_per_s"] for r in runs])),
+            "scenes": runs,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+    # K1 on one office frame's own inputs (16 rows), bit-equal.
+    seen = []
+    orig = _capture(outlier, "knn_mean_dists", seen)
+    try:
+        office_inference(cfg_o, model, ds, scenes[0], max_frames=1,
+                         device=dev)
+    finally:
+        outlier.knn_mean_dists = orig
+    check(len(seen) == 2, f"office: K1 called {len(seen)} times on a frame")
+    errs = []
+    for pts, val, cols, k in seen:
+        got = k1.knn_mean_dists(pts, val, cols, k)
+        want = k1.knn_mean_dists_plain(pts, val, cols, k)
+        sync()
+        errs.append(float((got - want).abs().max()))
+    check(max(errs) == 0.0, f"office: K1 differs from its plain version by "
+          f"{max(errs)}")
+    pts, val, cols, k = seen[0]
+    res["k1_on_office_frame"] = {
+        "shape": list(pts.shape) + [int(cols.numel()), k],
+        "max_abs_err": max(errs),
+        "ms": cuda_time_ms(lambda: k1.knn_mean_dists(pts, val, cols, k), 20)}
+    res["card_vs_cpu"] = _office_card_vs_cpu(cfg_o, model, ds, scenes[0],
+                                             dev, seed)
+
+    # The CLI in process, on a checkpoint of the office detector.
+    ckpt = f"{work}/det"
+    CheckpointManager(f"{ckpt}/ckpt").save(0, DetectionTrainState(
+        model, *detection_optimizer(cfg_o, model)))
+    cli_s = {}
+    for mode, flags in (("heuristic", [
+            "--fuse", "--fuse-shapes", "--mask-person",
+            f"detection.detections_per_image={OFFICE_CLI_SHAPES}"]),
+            ("f2f", ["--fuse"])):
+        out = f"{work}/cli_{mode}"
+        t0 = time.perf_counter()
+        cli.main(["infer-office", "--data", f"{work}/data", "--ckpt", ckpt,
+                  "--tracker", mode, "--max-frames", str(OFFICE_CLI_FRAMES),
+                  "--out", out, "detection.score_thresh_test=-1.0"] + flags)
+        cli_s[mode] = time.perf_counter() - t0
+        for s in scenes:
+            for f in ("trajectories.json", "replay.html"):
+                check(os.path.exists(f"{out}/{s}/{f}"),
+                      f"office CLI {mode}: no {s}/{f}")
+    res["cli_s"] = cli_s
+    res["cli_frames_per_scene"] = OFFICE_CLI_FRAMES
+    res["cli_heuristic_detections_per_frame"] = OFFICE_CLI_SHAPES
+    res["launches"] = launches
+    shutil.rmtree(work, ignore_errors=True)
+    emit(res)
+    return launches
+
+
+# -------------------------------------------------------- full extraction
+
+
+def _pose_gap(fa, fb):
+    """Medians over the slots both pose outputs keep: |translation| gap,
+    scale gap, and the counts."""
+    both = fa.valid & fb.valid
+    dt = (fa.translations - fb.translations).norm(dim=-1)[both]
+    ds = (fa.scales - fb.scales).abs()[both]
+    return {"valid_a": int(fa.valid.sum()), "valid_b": int(fb.valid.sum()),
+            "valid_both": int(both.sum()),
+            "translation_gap_median": float(dt.median()) if dt.numel()
+            else None,
+            "scale_gap_median": float(ds.median()) if ds.numel() else None}
+
+
+def phase_full_extraction(cfg, det, trk, template, seqs, draws, smi, dev):
+    """The serving sequences of phase_main with pose.extraction="full":
+    one warm-up and three timed sequences (stage seconds, frames/s, peak
+    memory, K1 2 launches per sequence), and the pose stage of both modes
+    on one sequence's detections of the office detector with open gates
+    (the gap is reported: the modes extract different points by
+    design)."""
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.ops.cuda import nms as k3
+    from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
+
+    cfg_f = cfg.replace(pose=dataclasses.replace(cfg.pose,
+                                                 extraction="full"))
+    step_f = make_sequence_infer_step(det, trk, template, cfg_f, device=dev)
+    _run_staged(step_f, seqs, draws, 0)             # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (k1, k2, k3):
+        mod.launches.reset()
+    stage = {"detector_s": 0.0, "pose_s": 0.0, "graph_mpn_s": 0.0}
+    t0 = time.perf_counter()
+    for q in (1, 2, 3):
+        _, frames, probs, _, times = _run_staged(step_f, seqs, draws, q)
+        for key in stage:
+            stage[key] += times[key]
+        check(bool(torch.isfinite(frames.translations).all()),
+              "full extraction: non-finite translations")
+        check(bool(torch.isfinite(probs).all()),
+              "full extraction: non-finite edge probs")
+    total = time.perf_counter() - t0
+    launches = {"knn_outlier": k1.launches.count,
+                "pose_extract": k2.launches.count, "nms": k3.launches.count}
+    check(launches["knn_outlier"] == 6,
+          f"full extraction: K1 launched {launches['knn_outlier']} times, "
+          f"expected 6")
+    peak = torch.cuda.max_memory_allocated()
+    # Both modes on the same detections of the office detector (masks that
+    # pass 0.5) with every gate open, so the GT-gated slots reach the fit.
+    cfg_o, model = _office_model(_open_train_gates(cfg), det, dev)
+    steps = {mode: make_sequence_infer_step(
+        model, trk, template, cfg_o.replace(pose=dataclasses.replace(
+            cfg_o.pose, extraction=mode)), device=dev)
+        for mode in ("full", "grid")}
+    batch = _batch(seqs, 1)
+    seq = type(batch)(*(x[0] for x in batch))
+    dets = steps["grid"].detect(seq.images)
+    gap = _pose_gap(steps["full"].pose(dets, seq, draws[1, 0]),
+                    steps["grid"].pose(dets, seq, draws[1, 0]))
+    check(gap["valid_both"] > 0, "full extraction: no slot fitted in both "
+          "modes on the open-gate detections")
+    emit({"phase": "full_extraction", "card": smi, "sequences": 3,
+          "stage_s": stage, "total_s": total,
+          "frames_per_s": 3 * cfg.tracking.seq_len / total,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "full_vs_grid_same_detections": gap})
+    return launches
+
+
+# ------------------------------------------------------------------ bf16
+
+
+def phase_bf16(cfg, det, trk, template, seqs, draws, smi, dev):
+    """The serving path with detection.compute_dtype="bfloat16" on phase
+    main's weights, beside float32 in the same process (float32, bf16,
+    bf16, float32; three sequences each): detector seconds, frames/s, peak
+    memory; FPN features and kept detections against float32 on one
+    sequence (gates below); float32 inputs to the pose stage; K1 2
+    launches per sequence."""
+    from mot3d_tpu_torch.geometry.iou3d import box2d_iou_matrix
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
+
+    cfg16 = cfg.replace(detection=dataclasses.replace(
+        cfg.detection, compute_dtype="bfloat16"))
+    det16 = MaskRCNN(cfg16.detection, device=dev).eval()
+    det16.load_state_dict(det.state_dict())
+    check(all(p.dtype == torch.float32 for p in det16.parameters()),
+          "bf16: parameters are not float32")
+    steps = {"float32": make_sequence_infer_step(det, trk, template, cfg,
+                                                 device=dev),
+             "bfloat16": make_sequence_infer_step(det16, trk, template,
+                                                  cfg16, device=dev)}
+    _run_staged(steps["bfloat16"], seqs, draws, 0)   # warm-up
+    passes = []
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        n1 = k1.launches.count
+        stage = {"detector_s": 0.0, "pose_s": 0.0, "graph_mpn_s": 0.0}
+        t0 = time.perf_counter()
+        for q in (1, 2, 3):
+            dets, frames, _, _, times = _run_staged(steps[name], seqs,
+                                                    draws, q)
+            for key in stage:
+                stage[key] += times[key]
+            check(all(t.dtype == torch.float32 for t in (
+                dets.boxes, dets.scores, dets.masks, dets.voxels,
+                dets.nocs)), f"{name}: the pose stage's inputs are not "
+                "float32")
+            check(bool(torch.isfinite(frames.translations).all()),
+                  f"{name}: non-finite translations")
+        total = time.perf_counter() - t0
+        passes.append({"compute_dtype": name, "stage_s": stage,
+                       "frames_per_s": 3 * cfg.tracking.seq_len / total,
+                       "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated(),
+                       "k1_launches": k1.launches.count - n1})
+        check(passes[-1]["k1_launches"] == 6,
+              f"{name}: K1 launched {passes[-1]['k1_launches']} times, "
+              f"expected 6")
+    images = torch.as_tensor(seqs[1]["images"], device=dev)
+    with torch.no_grad():
+        f32, f16 = det.features(images), det16.features(images)
+        d32, d16 = det.predict(images), det16.predict(images)
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(f16, f32)]
+    # Kept detections: the share of float32's with a bf16 detection of the
+    # same class at IoU >= 0.5 in the same frame.
+    iou = box2d_iou_matrix(d32.boxes, d16.boxes)
+    same = (d32.classes[..., :, None] == d16.classes[..., None, :]) \
+        & d16.valid[..., None, :]
+    hit = ((iou >= 0.5) & same).any(-1) & d32.valid
+    matched = float(hit.sum() / d32.valid.sum().clamp(min=1))
+    res = {"phase": "bf16", "card": smi, "passes": passes,
+           "fpn_relative_error": rel,
+           "kept_float32": int(d32.valid.sum()),
+           "kept_bfloat16": int(d16.valid.sum()),
+           "kept_matched_share": matched,
+           "gates": BF16_GATES}
+    emit(res)
+    check(max(rel) <= BF16_GATES["fpn_relative_error_max"],
+          f"bf16: FPN features differ from float32 by {max(rel)} (relative)")
+    check(matched >= BF16_GATES["kept_matched_share_min"],
+          f"bf16: only {matched} of float32's detections kept")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2010,6 +2426,10 @@ def main() -> int:
                                                               cfg, dev)
     reference_launches = phase_reference_weights(
         args.seed, cfg, trk, template, seqs, draws, trk_seqs, smi, dev)
+    office_launches = phase_office(args.seed, cfg, det, smi, dev)
+    full_launches = phase_full_extraction(cfg, det, trk, template, seqs,
+                                          draws, smi, dev)
+    phase_bf16(cfg, det, trk, template, seqs, draws, smi, dev)
 
     kernels = [
         {"name": "knn_outlier", "route": "cuda",
@@ -2023,7 +2443,9 @@ def main() -> int:
          "train_launches": train_launches["knn_outlier"],
          "workflow_launches": workflow_launches["knn_outlier"],
          "workflow_device_ms": workflow_ms["knn_outlier"],
-         "reference_launches": reference_launches["knn_outlier"]},
+         "reference_launches": reference_launches["knn_outlier"],
+         "office_launches": office_launches["knn_outlier"],
+         "full_launches": full_launches["knn_outlier"]},
         {"name": "pose_extract", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/pose_extract.cu",
          "replaces": "mot3d_tpu/ops/pallas/pose_extract.py:129",
@@ -2036,7 +2458,9 @@ def main() -> int:
          "train_launches": train_launches["pose_extract"],
          "workflow_launches": workflow_launches["pose_extract"],
          "workflow_device_ms": workflow_ms["pose_extract"],
-         "reference_launches": 0},
+         "reference_launches": 0,
+         "office_launches": office_launches["pose_extract"],
+         "full_launches": full_launches["pose_extract"]},
         {"name": "nms", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/nms.cu",
          "replaces": "mot3d_tpu/ops/pallas/nms_kernel.py:81",
@@ -2049,7 +2473,9 @@ def main() -> int:
          "train_launches": train_launches["nms"],
          "workflow_launches": workflow_launches["nms"],
          "workflow_device_ms": workflow_ms["nms"],
-         "reference_launches": reference_launches["nms"]},
+         "reference_launches": reference_launches["nms"],
+         "office_launches": office_launches["nms"],
+         "full_launches": full_launches["nms"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -2,8 +2,8 @@
 
 The package mirrors the layout of the JAX package (`geometry/`, `pose/`,
 `tracking/`, `models/`, `ops/`, `parallel/`) so each module's counterpart is
-easy to find.  It imports torch, numpy and (for the Hungarian step of the
-MOT metrics) scipy: never JAX, flax or anything of `mot3d_tpu`.  Public
+easy to find.  It imports torch and numpy: never JAX, flax or anything of
+`mot3d_tpu`.  Public
 functions keep the JAX package's layouts (NHWC images, (..., 28, 28, 3) NOCS
 patches, (N, 32, 32, 32) voxels); channel-first permutes happen inside the
 modules.
@@ -11,10 +11,11 @@ modules.
 Entry points (`parallel.infer_step.make_sequence_infer_step`, the train
 steps of `parallel.train_step`, the trainers of `train/`,
 `export.DetectorExporter`, `data.prefetch.device_prefetch`, the CLI
-`python -m mot3d_tpu_torch.cli` and the model constructors) run on the
-GPU unless the caller passes `device="cpu"` (`--device cpu`).  Host
-packages of the file readers and summaries (h5py, cv2, matplotlib, PIL,
-tensorboard) are imported inside the functions that use them.  The
+`python -m mot3d_tpu_torch.cli`, `data.office.office_inference` and the
+model constructors) run on the GPU unless the caller passes `device="cpu"`
+(`--device cpu`).  Host packages of the file readers, summaries, MOT
+metrics and smoothing (h5py, cv2, matplotlib, PIL, tensorboard, scipy)
+are imported inside the functions that use them.  The
 CUDA kernels under `ops/cuda/` are built from `csrc/` on their first use on
 a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch version.
 """

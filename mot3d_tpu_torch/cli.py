@@ -9,6 +9,7 @@ reference's scripts:
     python -m mot3d_tpu_torch.cli train-siamese     # Tracking/train.py (no graph)
     python -m mot3d_tpu_torch.cli infer-siamese     # Tracking/inference.py (no graph)
     python -m mot3d_tpu_torch.cli import-torch-ckpt # the reference's .pth weights
+    python -m mot3d_tpu_torch.cli infer-office      # Detection/inference_office_dset.py
 
 Every subcommand runs on the GPU unless given `--device cpu` (it raises
 without a GPU otherwise).  Config overrides use `section.field=value`
@@ -20,7 +21,6 @@ without a GPU otherwise).  Config overrides use `section.field=value`
 Checkpoints are the port's own (`train/checkpoints.py`, one `torch.save`
 file per step); `--ckpt` takes a trainer's output dir or its `ckpt/`, and
 `import-torch-ckpt` writes them from the reference's torch checkpoints.
-infer-office is not ported yet and raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,9 +33,6 @@ from typing import List
 
 from mot3d_tpu_torch.config import Config, apply_overrides, default_config
 
-_NOT_PORTED = {
-    "infer-office": "Office, F2F, heuristic and smoothing",
-}
 # What an imported detector runs under (`importers/torch_ckpt.py:
 # import_config`), as overrides of the commands that read its checkpoint.
 IMPORT_OVERRIDES = ("detection.norm=affine detection.voxel_torch_reshape=true "
@@ -144,8 +141,23 @@ def _parse(argv: List[str]):
                          "--ckpt; an imported detector runs under "
                          + IMPORT_OVERRIDES + ")")
 
-    for name in _NOT_PORTED:
-        sub.add_parser(name, parents=[common])
+    # Office (real-world TUM RGB-D) inference: the reference's first-class
+    # entry point `Detection/inference_office_dset.py:51-404`.
+    io_ = sub.add_parser("infer-office", parents=[common])
+    io_.add_argument("--data", required=True, help="office base dir")
+    io_.add_argument("--ckpt", default=None, help="detection ckpt dir")
+    io_.add_argument("--scene", default=None, help="default: all scenes")
+    io_.add_argument("--max-frames", type=int, default=None)
+    io_.add_argument("--tracker", choices=("heuristic", "f2f"),
+                     default="heuristic")
+    io_.add_argument("--fuse", action="store_true",
+                     help="fuse_pose smoothing of the trajectories")
+    io_.add_argument("--fuse-shapes", action="store_true",
+                     help="canonical-shape fusion: replay ONE fused mesh "
+                          "per object (fuse_obj_shape)")
+    io_.add_argument("--mask-person", action="store_true",
+                     help="densepose person masking")
+    io_.add_argument("--out", default="out/office")
 
     args, overrides = p.parse_known_args(argv)
     return args, [o for o in overrides if "=" in o]
@@ -312,12 +324,47 @@ def _import_torch_ckpt(args, cfg: Config, device) -> None:
               f"{save('trk', state)}")
 
 
+def _infer_office(args, cfg: Config, device) -> None:
+    """infer-office: per scene, `office_inference`, optional smoothing,
+    the visual export and `trajectories.json`."""
+    import json
+
+    import numpy as np
+
+    from mot3d_tpu_torch.data.office import OfficeDataset, office_inference
+    from mot3d_tpu_torch.tracking.smoothing import fuse_pose, fuse_pose_f2f
+    from mot3d_tpu_torch.tracking.visualise import export_sequence
+    ds = OfficeDataset(args.data,
+                       resize_hw=(cfg.camera.height, cfg.camera.width),
+                       mask_person=args.mask_person)
+    model = _init_detector(cfg, args.ckpt, device)
+    for scene in ([args.scene] if args.scene else ds.scenes):
+        trajs, per_frame = office_inference(
+            cfg, model, ds, scene, max_frames=args.max_frames,
+            tracker=args.tracker, device=device)
+        if args.fuse:
+            # Heuristic-mode detections carry cad2world: the matrix fusion
+            # of the F2F variant; segment-centre (f2f) tracks only have
+            # locations: translation/rotation fuse_pose.
+            trajs = [fuse_pose_f2f(t) if "cad2world" in (t[0] if t else {})
+                     else fuse_pose(t) for t in trajs]
+        sdir = os.path.join(args.out, scene)
+        export_sequence(sdir, trajs, with_shapes=args.tracker != "f2f",
+                        fuse_shapes=(args.fuse_shapes
+                                     and args.tracker != "f2f"))
+        summary = [[{"scan_idx": int(d["scan_idx"]),
+                     "loc": np.asarray(d["loc"]).tolist(),
+                     "cls": int(d.get("cls", -1))} for d in t]
+                   for t in trajs]
+        with open(os.path.join(sdir, "trajectories.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        n_dets = sum(len(fd) for fd in per_frame)
+        print(f"{scene}: {len(trajs)} trajectories from {n_dets} "
+              f"detections over {len(per_frame)} frames -> {sdir}")
+
+
 def main(argv=None):
     args, overrides = _parse(argv if argv is not None else sys.argv[1:])
-    if args.cmd in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{args.cmd} is not ported yet: ROADMAP.md Queue 1, item "
-            f"'{_NOT_PORTED[args.cmd]}'")
     from mot3d_tpu_torch.device import resolve_device
     device = resolve_device(args.device)
     cfg = apply_overrides(default_config(), overrides)
@@ -369,6 +416,9 @@ def main(argv=None):
 
     elif args.cmd == "import-torch-ckpt":
         _import_torch_ckpt(args, cfg, device)
+
+    elif args.cmd == "infer-office":
+        _infer_office(args, cfg, device)
 
     elif args.cmd == "train-detection":
         from mot3d_tpu_torch.data.detection_loader import \

@@ -9,8 +9,8 @@ It replaces the reference's four uncoordinated config mechanisms
 reference (objectness 0.35, 2D IoU 0.35, 3D IoU 0.01, L2 gate 0.4,
 fx=292.87803547399, ...) is a named field here.
 
-Values this port does not implement yet are rejected where they are read,
-with `NotImplementedError` naming the ROADMAP.md item that ports them.
+Every value the JAX package accepts is implemented; an unknown value is
+rejected with a `ValueError` where it is read.
 """
 
 from __future__ import annotations
@@ -72,9 +72,9 @@ class PoseConfig:
     # Point extraction: "grid" samples a sqrt(max_points)^2 pixel grid
     # inside the box (plain tensor code, pose/extraction.py); "pallas" runs
     # the fused extraction kernel (ops/cuda/pose_extract.py on the GPU, the
-    # same outputs); "full" pastes NOCS+mask to the full image and compacts
-    # valid pixels (not ported yet).  All feed the same outlier removal +
-    # RANSAC.
+    # same outputs); "full" pastes the mask to the full image and compacts
+    # its valid pixels (pose/pipeline.py:full_extract).  All feed the same
+    # outlier removal + RANSAC.
     extraction: str = "grid"
     # Rotation solver: "quat" (Horn quaternion via power iteration) or
     # "svd" (torch.linalg.svd).

@@ -312,3 +312,66 @@ def fixture_samples(scenes: List[RenderedScene], cfg: DetectionConfig,
                 nocs_patch_size))
         out.append(samples)
     return out
+
+
+# TUM RGB-D freiburg1's published colour intrinsics (fx fy cx cy, 640 x 480).
+TUM_FR1_INTRINSICS = (517.3, 516.5, 318.6, 255.3)
+
+
+def write_office_fixture(root: str, num_scenes: int = 2,
+                         num_frames: int = 25, seed: int = 0,
+                         hw=(480, 640), intrinsics=TUM_FR1_INTRINSICS,
+                         person_scenes=(0,), depth_scale: float = 10.0
+                         ) -> List[str]:
+    """Write synthetic scenes in the office reader's on-disk format
+    (`data/office.py`): `rgb/*.png`, 8-bit `depth/*.png` (the reader takes
+    the first channel as the depth), `calibration.txt` ("fx fy cx cy") and,
+    for the scenes in `person_scenes`, `denseposes/*.png` person masks.
+
+    Each scene is a room (a depth that tilts from floor to wall) with four
+    box-shaped objects nearer the camera, drawn in flat colours and
+    panning slowly to the left; depths are written in units of
+    1 / depth_scale (decimetres by default), rounded to 8 bits.  Returns
+    the scene names."""
+    import cv2
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    vv, uu = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    names = []
+    for s in range(num_scenes):
+        name = f"scene{s:02d}"
+        base = os.path.join(root, name)
+        subdirs = ("rgb", "depth") + (("denseposes",) if s in person_scenes
+                                      else ())
+        for sub in subdirs:
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        with open(os.path.join(base, "calibration.txt"), "w") as f:
+            f.write(" ".join(f"{v}" for v in intrinsics) + "\n")
+        objs = [(rng.uniform(0.06, 0.7) * w, rng.uniform(0.08, 0.6) * h,
+                 rng.uniform(0.12, 0.28) * w, rng.uniform(0.16, 0.33) * h,
+                 rng.uniform(1.5, 3.0)) for _ in range(4)]
+        for t in range(num_frames):
+            shift = 0.005 * w * t
+            d = 4.0 - 1.5 * vv / h + 0.002 * uu * 640 / w
+            img = rng.uniform(40, 90, (h, w, 3))
+            for j, (x, y, bw, bh, z) in enumerate(objs):
+                x0, y0 = max(int(x - shift), 0), int(y)
+                x1, y1 = int(x - shift + bw), int(y + bh)
+                if x1 <= 0:
+                    continue
+                d[y0:y1, x0:x1] = z + 0.001 * (uu[y0:y1, x0:x1] - x0)
+                img[y0:y1, x0:x1] = (60 + 40 * j, 200 - 30 * j, 90 + 25 * j)
+            depth8 = np.clip(np.round(d * depth_scale), 0, 255).astype(
+                np.uint8)
+            fname = f"{t:04d}.png"
+            cv2.imwrite(os.path.join(base, "rgb", fname),
+                        img[:, :, ::-1].astype(np.uint8))
+            cv2.imwrite(os.path.join(base, "depth", fname),
+                        np.repeat(depth8[:, :, None], 3, -1))
+            if s in person_scenes:
+                person = np.zeros((h, w), np.uint8)
+                person[h // 3:, int(0.85 * w):] = 1 + t % 3
+                cv2.imwrite(os.path.join(base, "denseposes", fname),
+                            np.repeat(person[:, :, None], 3, -1))
+        names.append(name)
+    return names

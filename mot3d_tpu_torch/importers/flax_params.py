@@ -26,7 +26,10 @@ The inputs are nested dicts of numpy arrays (e.g. `jax.device_get` of
 of the params' structure maps the same way: a gradient tree, or the Adam
 moments of an optax state (`adamw_state_dict`), so a port run can continue
 a JAX run step for step.  float64 leaves stay float64; any other leaf
-becomes float32.
+becomes float32.  The layout does not depend on the detector's compute
+dtype: parameters stay float32 under `detection.compute_dtype="bfloat16"`
+(flax's `dtype=` casts them per call, as the port's `norms.compute_in`
+does), so a bf16 model loads the same float32 state_dict.
 """
 
 from __future__ import annotations

@@ -14,6 +14,13 @@ with the GT boxes appended (`sample_rois`), box classification and
 regression on the sampled ROIs, and the mask, voxel and NOCS losses on a
 fixed per-image buffer of the foreground ROIs (positives first).  The
 random draws of both samplers are an input (`DetectionDraws`).
+
+`detection.compute_dtype="bfloat16"` runs the backbone, the RPN head and
+the box, mask, voxel and NOCS heads in bfloat16 with float32 parameters
+(flax's `dtype=`, `models/norms.py:compute_in`): the FPN features and every
+head's outputs come back as float32, so ROIAlign, proposal selection, NMS
+and everything after the detector stay float32.  A float32 state_dict
+loads unchanged.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from mot3d_tpu_torch.models.heads import conv_transpose
 from mot3d_tpu_torch.models.nocs_head import (NocsBinDecoder, NocsDecoder,
                                               nocs_bin_loss,
                                               nocs_bins_to_values, nocs_loss)
-from mot3d_tpu_torch.models.norms import check_norm
+from mot3d_tpu_torch.models.norms import (check_norm, compute_dtype,
+                                          compute_in)
 from mot3d_tpu_torch.models.resnet_fpn import ResNetFPN
 from mot3d_tpu_torch.models.rpn import (RPNHead, decode_deltas,
                                         encode_deltas, generate_anchors,
@@ -92,26 +100,37 @@ class Detections(NamedTuple):
 
 class BoxHead(nn.Module):
     """fc1 contracts the channels-last pooled (7, 7, C) block, as the flax
-    head's `fc1_kernel` does."""
+    head's `fc1_kernel` does.  With a compute dtype the layers run in it
+    and the logits and deltas, which feed the score thresholds and box
+    decoding, are cast to float32."""
 
     def __init__(self, in_channels: int, pooled: int, num_classes: int,
-                 width: int = 1024):
+                 width: int = 1024, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_classes = num_classes
+        self.dtype = dtype
         self.fc1 = nn.Linear(pooled * pooled * in_channels, width)
         self.Dense_0 = nn.Linear(width, width)
         self.cls = nn.Linear(width, num_classes + 1)
         self.box = nn.Linear(width, num_classes * 4)
 
     def forward(self, pooled):  # (N, 7, 7, C)
-        x = F.relu(self.fc1(pooled.reshape(pooled.shape[0], -1)))
-        x = F.relu(self.Dense_0(x))
-        return self.cls(x), self.box(x).reshape(-1, self.num_classes, 4)
+        x = pooled.reshape(pooled.shape[0], -1)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = F.relu(compute_in(self.fc1, x))
+        x = F.relu(compute_in(self.Dense_0, x))
+        logits, deltas = compute_in(self.cls, x), compute_in(self.box, x)
+        if self.dtype is not None:
+            logits, deltas = logits.float(), deltas.float()
+        return logits, deltas.reshape(-1, self.num_classes, 4)
 
 
 class MaskHead(nn.Module):
-    def __init__(self, in_channels: int, num_classes: int, width: int = 256):
+    def __init__(self, in_channels: int, num_classes: int, width: int = 256,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         for i in range(4):
             self.add_module(f"Conv_{i}", nn.Conv2d(
                 in_channels if i == 0 else width, width, 3, padding=1))
@@ -120,18 +139,15 @@ class MaskHead(nn.Module):
 
     def forward(self, pooled):  # (N, 14, 14, C) -> (N, 28, 28, classes)
         x = pooled.permute(0, 3, 1, 2)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         for i in range(4):
-            x = F.relu(getattr(self, f"Conv_{i}")(x))
-        x = F.relu(self.ConvTranspose_0(x))
-        return self.Conv_4(x).permute(0, 2, 3, 1)
-
-
-def _check_supported(c: DetectionConfig) -> None:
-    check_norm(c.norm)
-    if c.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"detection.compute_dtype={c.compute_dtype!r} is not ported "
-            "yet: ROADMAP.md Queue 1, item 'bf16 detector compute'")
+            x = F.relu(compute_in(getattr(self, f"Conv_{i}"), x))
+        x = F.relu(compute_in(self.ConvTranspose_0, x))
+        x = compute_in(self.Conv_4, x)
+        if self.dtype is not None:
+            x = x.float()
+        return x.permute(0, 2, 3, 1)
 
 
 class MaskRCNN(nn.Module):
@@ -139,23 +155,24 @@ class MaskRCNN(nn.Module):
 
     def __init__(self, cfg: DetectionConfig, device=None):
         super().__init__()
-        _check_supported(cfg)
+        check_norm(cfg.norm)
+        dt = compute_dtype(cfg.compute_dtype)
         self.cfg = c = cfg
         ch = c.fpn_channels
         self.backbone = ResNetFPN(c.backbone_depth, ch, c.backbone_width,
-                                  c.norm, c.stride_in_1x1)
-        self.rpn_head = RPNHead(ch, len(c.anchor_ratios))
+                                  c.norm, c.stride_in_1x1, dt)
+        self.rpn_head = RPNHead(ch, len(c.anchor_ratios), dt)
         r = c.box_pooler_resolution
-        self.box_head = BoxHead(ch, r, c.num_classes, c.box_head_width)
-        self.mask_head = MaskHead(ch, c.num_classes, c.mask_head_width)
+        self.box_head = BoxHead(ch, r, c.num_classes, c.box_head_width, dt)
+        self.mask_head = MaskHead(ch, c.num_classes, c.mask_head_width, dt)
         if c.voxel_on:
             self.voxel_head = Pix2VoxDecoder(ch, c.mask_pooler_resolution,
                                              c.head_width_mult, c.norm,
-                                             c.voxel_torch_reshape)
+                                             c.voxel_torch_reshape, dt)
         if c.nocs_on:
-            self.nocs_head = (NocsBinDecoder(ch, c.nocs_num_bins, c.norm)
+            self.nocs_head = (NocsBinDecoder(ch, c.nocs_num_bins, c.norm, dt)
                               if c.nocs_use_bin_loss
-                              else NocsDecoder(ch, c.norm))
+                              else NocsDecoder(ch, c.norm, dt))
         anchors = generate_anchors(c.pad_height, c.pad_width,
                                    tuple(c.anchor_sizes),
                                    tuple(c.anchor_ratios), RPN_STRIDES,

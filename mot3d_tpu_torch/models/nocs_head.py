@@ -24,24 +24,28 @@ smaller loss of the GT and its 180-degree rotation about Y, background
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mot3d_tpu_torch.models.heads import conv_transpose
-from mot3d_tpu_torch.models.norms import make_norm, norm_name
+from mot3d_tpu_torch.models.norms import compute_in, make_norm, norm_name
 
 
 def _norm_act(norm_layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     if isinstance(norm_layer, nn.GroupNorm):
-        return F.relu(norm_layer(x))
-    return norm_layer(F.relu(x))
+        return F.relu(compute_in(norm_layer, x))
+    return compute_in(norm_layer, F.relu(x))
 
 
 class NocsDecoder(nn.Module):
-    def __init__(self, in_channels: int, norm: str = "gn"):
+    def __init__(self, in_channels: int, norm: str = "gn",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         chans = (in_channels, 256, 128, 64, 3)
         kernels = (3, 3, 4, 3)
         strides = (1, 1, 2, 1)
@@ -53,12 +57,17 @@ class NocsDecoder(nn.Module):
             self.add_module(name, make_norm(norm, 32, chans[i + 1]))
 
     def forward(self, x):
-        """(N, 14, 14, C) -> (N, 28, 28, 3)."""
+        """(N, 14, 14, C) -> (N, 28, 28, 3), the sigmoid taken in float32
+        under a compute dtype."""
         x = x.permute(0, 3, 1, 2)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         for i, name in enumerate(self.norms):
             x = _norm_act(getattr(self, name),
-                          getattr(self, f"ConvTranspose_{i}")(x))
-        x = self.ConvTranspose_3(x)
+                          compute_in(getattr(self, f"ConvTranspose_{i}"), x))
+        x = compute_in(self.ConvTranspose_3, x)
+        if self.dtype is not None:
+            x = x.float()
         return torch.sigmoid(x).permute(0, 2, 3, 1)
 
 
@@ -68,8 +77,9 @@ class NocsBinDecoder(nn.Module):
     norm layers 0..5 in that order."""
 
     def __init__(self, in_channels: int, num_bins: int = 32,
-                 norm: str = "gn"):
+                 norm: str = "gn", dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.norms = [norm_name(norm, i) for i in range(6)]
         for t, ch in enumerate("rgb"):
             self.add_module(f"l1_{ch}", conv_transpose(2, in_channels, 128, 3))
@@ -79,15 +89,21 @@ class NocsBinDecoder(nn.Module):
             self.add_module(f"l3_{ch}", conv_transpose(2, 64, num_bins, 3))
 
     def forward(self, x):
-        """(N, 14, 14, C) -> (N, 28, 28, 3, bins) logits."""
+        """(N, 14, 14, C) -> (N, 28, 28, 3, bins) logits (float32 under a
+        compute dtype)."""
         x = x.permute(0, 3, 1, 2)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         outs = []
         for t, ch in enumerate("rgb"):
             y = _norm_act(getattr(self, self.norms[2 * t]),
-                          getattr(self, f"l1_{ch}")(x))
+                          compute_in(getattr(self, f"l1_{ch}"), x))
             y = _norm_act(getattr(self, self.norms[2 * t + 1]),
-                          getattr(self, f"l2_{ch}")(y))
-            outs.append(getattr(self, f"l3_{ch}")(y).permute(0, 2, 3, 1))
+                          compute_in(getattr(self, f"l2_{ch}"), y))
+            y = compute_in(getattr(self, f"l3_{ch}"), y)
+            if self.dtype is not None:
+                y = y.float()
+            outs.append(y.permute(0, 2, 3, 1))
         return torch.stack(outs, dim=-2)
 
 

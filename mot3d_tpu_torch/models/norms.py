@@ -11,6 +11,12 @@ Two modes, selected by `DetectionConfig.norm`:
 
 Both kinds of layer name their parameters `weight` and `bias`, so a flax
 `scale` leaf maps to `weight` whichever mode built the module.
+
+Reduced-precision compute (`detection.compute_dtype="bfloat16"`, flax's
+`dtype=`): parameters stay float32 and every layer is called through
+`compute_in`, which casts them to the input's dtype per call; GroupNorm
+takes its statistics and affine in float32 and returns the input's dtype,
+as flax's does.
 """
 
 from __future__ import annotations
@@ -19,6 +25,32 @@ import torch
 from torch import nn
 
 GN_EPS = 1e-6
+
+
+def compute_dtype(name: str):
+    """`detection.compute_dtype` -> the torch dtype the detector's layers
+    compute in, or None for their parameters' own dtype."""
+    if name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"unknown detection.compute_dtype {name!r} (expected "
+                     f"'float32' or 'bfloat16')")
+
+
+def compute_in(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`layer(x)` in x's dtype: the layer's own call when its parameters
+    have that dtype, else with them cast to it for this call (autograd
+    reaches the float32 parameters through the cast); a GroupNorm
+    normalises x in its parameters' dtype and casts the result back."""
+    w = layer.weight
+    if w.dtype == x.dtype:
+        return layer(x)
+    if isinstance(layer, nn.GroupNorm):
+        return layer(x.to(w.dtype)).to(x.dtype)
+    return torch.func.functional_call(
+        layer, {n: p.to(x.dtype) for n, p in layer.named_parameters()},
+        (x,))
 
 
 def check_norm(norm: str) -> None:

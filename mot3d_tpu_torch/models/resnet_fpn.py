@@ -7,18 +7,21 @@ stage stride on the bottleneck's 3x3 convolution, or on its first 1x1 with
 need); nearest 2x top-down upsampling and P6 = every second pixel of P5.
 Layers are NCHW inside; submodule names follow the flax parameter tree (the
 unnamed norm layers are `GroupNorm_i` or `AffineChannelNorm_i` by mode).
-Outputs P2..P6 (strides 4..64), finest first, each (B, C, h, w).
+Outputs P2..P6 (strides 4..64), finest first, each (B, C, h, w).  With a
+compute dtype (bfloat16) the image is cast to it on entry, every layer runs
+in it through `norms.compute_in`, and the outputs are cast back to float32,
+as the flax backbone does.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mot3d_tpu_torch.models.norms import make_norm, norm_name
+from mot3d_tpu_torch.models.norms import compute_in, make_norm, norm_name
 
 
 class Bottleneck(nn.Module):
@@ -40,11 +43,13 @@ class Bottleneck(nn.Module):
             self.add_module(name, make_norm(norm, 32, ch))
 
     def forward(self, x):
+        c = compute_in
         n0, n1, n2 = (getattr(self, name) for name in self.norms)
-        shortcut = self.proj_gn(self.proj(x)) if self.has_proj else x
-        y = F.relu(n0(self.Conv_0(x)))
-        y = F.relu(n1(self.Conv_1(y)))
-        y = n2(self.Conv_2(y))
+        shortcut = (c(self.proj_gn, c(self.proj, x)) if self.has_proj
+                    else x)
+        y = F.relu(c(n0, c(self.Conv_0, x)))
+        y = F.relu(c(n1, c(self.Conv_1, y)))
+        y = c(n2, c(self.Conv_2, y))
         return F.relu(y + shortcut)
 
 
@@ -75,7 +80,7 @@ class ResNet(nn.Module):
         self.out_channels = [w(ch) * 4 for ch in (64, 128, 256, 512)]
 
     def forward(self, x):
-        x = F.relu(self.stem_gn(self.stem(x)))
+        x = F.relu(compute_in(self.stem_gn, compute_in(self.stem, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = []
         for names in self.stages:
@@ -108,23 +113,29 @@ class FPN(nn.Module):
         self.levels = len(in_channels)
 
     def forward(self, c_feats):
-        laterals = [getattr(self, f"lat{i + 2}")(c)
+        laterals = [compute_in(getattr(self, f"lat{i + 2}"), c)
                     for i, c in enumerate(c_feats)]
         outs = [laterals[-1]]
         for lat in laterals[-2::-1]:
             outs.insert(0, lat + resize_nearest(outs[0], lat.shape[-2:]))
-        ps = [getattr(self, f"post{i + 2}")(o) for i, o in enumerate(outs)]
+        ps = [compute_in(getattr(self, f"post{i + 2}"), o)
+              for i, o in enumerate(outs)]
         return ps + [ps[-1][..., ::2, ::2]]  # P2..P6
 
 
 class ResNetFPN(nn.Module):
     def __init__(self, depth: int = 50, out_channels: int = 256,
                  width_mult: float = 1.0, norm: str = "gn",
-                 stride_in_1x1: bool = False):
+                 stride_in_1x1: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.resnet = ResNet(depth, width_mult, norm, stride_in_1x1)
         self.fpn = FPN(self.resnet.out_channels, out_channels)
 
     def forward(self, images):
         """images (B, 3, H, W) normalised -> [P2..P6] (B, C, h, w)."""
-        return self.fpn(self.resnet(images))
+        if self.dtype is None:
+            return self.fpn(self.resnet(images))
+        return [p.float() for p in self.fpn(self.resnet(images.to(
+            self.dtype)))]

@@ -14,7 +14,7 @@ per anchor, where the JAX package draws them from a key with
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mot3d_tpu_torch.geometry.iou3d import box2d_iou_matrix
+from mot3d_tpu_torch.models.norms import compute_in
 from mot3d_tpu_torch.ops.nms import gather_rows, nms_mask, top_k_by_score
 
 _CLAMP = float(np.log(1000.0 / 16))
@@ -118,10 +119,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 class RPNHead(nn.Module):
     """Shared 3x3 conv + objectness and delta 1x1 convs over every level;
-    outputs flattened in (h, w, anchor) order like the NHWC flax head."""
+    outputs flattened in (h, w, anchor) order like the NHWC flax head.
+    With a compute dtype the convolutions run in it and the outputs, which
+    feed box decoding and the NMS thresholds, are cast to float32."""
 
-    def __init__(self, channels: int, num_anchors: int):
+    def __init__(self, channels: int, num_anchors: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
         self.objectness = nn.Conv2d(channels, num_anchors, 1)
         self.deltas = nn.Conv2d(channels, num_anchors * 4, 1)
@@ -129,10 +134,16 @@ class RPNHead(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]):
         objs, deltas = [], []
         for f in feats:
-            t = F.relu(self.conv(f))
+            if self.dtype is not None:
+                f = f.to(self.dtype)
+            t = F.relu(compute_in(self.conv, f))
             b = f.shape[0]
-            objs.append(self.objectness(t).permute(0, 2, 3, 1).reshape(b, -1))
-            deltas.append(self.deltas(t).permute(0, 2, 3, 1).reshape(b, -1, 4))
+            o = compute_in(self.objectness, t).permute(0, 2, 3, 1)
+            d = compute_in(self.deltas, t).permute(0, 2, 3, 1)
+            if self.dtype is not None:
+                o, d = o.float(), d.float()
+            objs.append(o.reshape(b, -1))
+            deltas.append(d.reshape(b, -1, 4))
         return torch.cat(objs, 1), torch.cat(deltas, 1)
 
 

@@ -15,22 +15,26 @@ balanced BCE over the selected instances) as one masked batched op.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from mot3d_tpu_torch.geometry.iou3d import voxel_iou
 from mot3d_tpu_torch.models.heads import conv_transpose
-from mot3d_tpu_torch.models.norms import make_norm, norm_name
+from mot3d_tpu_torch.models.norms import compute_in, make_norm, norm_name
 from mot3d_tpu_torch.models.rpn import softplus
 
 
 class Pix2VoxDecoder(nn.Module):
     def __init__(self, in_channels: int, pooled: int = 14,
                  width_mult: float = 1.0, norm: str = "gn",
-                 torch_reshape: bool = False):
+                 torch_reshape: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.torch_reshape = torch_reshape
+        self.dtype = dtype
 
         def w(c):
             return max(8, int(c * width_mult))
@@ -48,16 +52,20 @@ class Pix2VoxDecoder(nn.Module):
                                             chans[i + 1]))
 
     def forward(self, x):
-        """(N, 14, 14, C) -> (N, 32, 32, 32) logits."""
+        """(N, 14, 14, C) -> (N, 32, 32, 32) logits (float32 under a
+        compute dtype: they feed the losses)."""
         n = x.shape[0]
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if self.torch_reshape:
             vol = x.permute(0, 3, 1, 2).reshape(n, -1, 4, 4, 4)
         else:
             vol = x.reshape(n, 4, 4, 4, -1).permute(0, 4, 1, 2, 3)
         for i, name in enumerate(self.norms):
-            vol = getattr(self, f"ConvTranspose_{i}")(vol)
-            vol = F.relu(getattr(self, name)(vol))
-        return self.ConvTranspose_4(vol)[:, 0]
+            vol = compute_in(getattr(self, f"ConvTranspose_{i}"), vol)
+            vol = F.relu(compute_in(getattr(self, name), vol))
+        out = compute_in(self.ConvTranspose_4, vol)[:, 0]
+        return out if self.dtype is None else out.float()
 
 
 def voxel_loss(pred_logits: torch.Tensor, gt_voxels: torch.Tensor,

@@ -60,16 +60,21 @@ class SequenceOutputs(NamedTuple):
     scores: torch.Tensor        # (B, T, I) detector objectness
 
 
+def to_host(tensors) -> list:
+    """Tensors as numpy arrays, through one device-to-host copy: they are
+    packed into one float64 buffer on the device (exact for the floats,
+    flags and small integers they hold) and split on the host."""
+    sizes = [x.numel() for x in tensors]
+    flat = torch.cat([x.reshape(-1).double() for x in tensors]).cpu().numpy()
+    return [part.reshape(tuple(x.shape)).astype(
+                torch.empty(0, dtype=x.dtype).numpy().dtype)
+            for part, x in zip(np.split(flat, np.cumsum(sizes)[:-1]),
+                               tensors)]
+
+
 def outputs_to_host(outputs: SequenceOutputs) -> SequenceOutputs:
-    """The same fields as numpy arrays, through one device-to-host copy: the
-    fields are packed into one float64 buffer on the device (exact for the
-    floats, flags and small integers they hold) and split on the host."""
-    sizes = [x.numel() for x in outputs]
-    flat = torch.cat([x.reshape(-1).double() for x in outputs]).cpu().numpy()
-    return SequenceOutputs(*(
-        part.reshape(tuple(x.shape)).astype(
-            torch.empty(0, dtype=x.dtype).numpy().dtype)
-        for part, x in zip(np.split(flat, np.cumsum(sizes)[:-1]), outputs)))
+    """The same fields as numpy arrays, through one copy (`to_host`)."""
+    return SequenceOutputs(*to_host(outputs))
 
 
 class SequenceInferStep:

@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from mot3d_tpu_torch.config import Config
-from mot3d_tpu_torch.geometry.backproject import backproject_depth
+from mot3d_tpu_torch.geometry.backproject import (backproject_depth,
+                                                  masked_slots)
 from mot3d_tpu_torch.geometry.iou3d import box2d_iou_matrix
 from mot3d_tpu_torch.geometry.outlier import statistical_outlier_mask
 from mot3d_tpu_torch.geometry.transforms import (aabb_corners, cam_to_world,
@@ -213,13 +214,66 @@ def pose_from_points(depth_pts: torch.Tensor, nocs_vals: torch.Tensor,
 
 
 def _check_extraction(cfg: Config) -> None:
-    if cfg.pose.extraction == "full":
-        raise NotImplementedError(
-            "pose.extraction='full' (paste + gather extraction) is not "
-            "ported yet: ROADMAP.md Queue 1, item 'Pose stage: full "
-            "extraction mode'")
-    if cfg.pose.extraction not in ("grid", "pallas"):
+    if cfg.pose.extraction not in ("grid", "pallas", "full"):
         raise ValueError(f"unknown pose.extraction {cfg.pose.extraction!r}")
+
+
+def _paste_at(patch: torch.Tensor, box_xyxy: torch.Tensor, out_hw,
+              ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """`paste_patch(patch, box_xyxy, out_hw)` read at the pixels (ys, xs)
+    (..., M) only: (..., g, g, C) -> (..., M, C), the same two separable
+    contractions restricted to the weight columns of those pixels."""
+    h, w = out_hw
+    g = patch.shape[-3]
+    bw = torch.clamp(box_xyxy[..., 2] - box_xyxy[..., 0], min=1e-6)
+    bh = torch.clamp(box_xyxy[..., 3] - box_xyxy[..., 1], min=1e-6)
+    wy = _scale_weights(g, h, bh / g, box_xyxy[..., 1] + 0.5)
+    wx = _scale_weights(g, w, bw / g, box_xyxy[..., 0] + 0.5)
+    cols = ys.shape[:-1] + (g, ys.shape[-1])
+    wy = torch.gather(wy, -1, ys[..., None, :].expand(cols))   # (..., g, M)
+    wx = torch.gather(wx, -1, xs[..., None, :].expand(cols))
+    rows = torch.einsum("...im,...ijc->...mjc", wy.to(patch.dtype), patch)
+    return torch.einsum("...mjc,...jm->...mc", rows, wx.to(patch.dtype))
+
+
+@strict_fp32()
+def full_extract(det_nocs, det_masks, det_boxes, depth, campose, intrinsics,
+                 gt_box3d, cfg: Config):
+    """The "full" extraction of all (F, I) slots (JAX `estimate_object_pose`
+    outside the grid modes and the `else` branch of `postprocess_frame`):
+    each slot's 28x28 mask probabilities pasted over its box to a
+    full-image mask at >= 0.5, the frame's depth backprojected (and taken
+    to the world) once for all its slots, the optional GT-box depth
+    cleaning done on the pixel map before compaction (kept where more than
+    `clean_depth_min_points` pixels survive it), then at most `max_points`
+    pixels per slot compacted by `masked_slots` and their NOCS read from
+    the pasted patch.  det_nocs (F, I, g, g, 3), det_masks (F, I, g, g),
+    det_boxes (F, I, 4), depth (F, H, W), campose (F, 4, 4), gt_box3d
+    (F, I, 8, 3) or None -> (points (F, I, P, 3), NOCS (F, I, P, 3),
+    valid (F, I, P))."""
+    p = cfg.pose
+    f_count, i_slots = det_boxes.shape[:2]
+    h, w = depth.shape[-2:]
+    pts_map, base_valid = backproject_depth(depth, intrinsics)
+    pts_map = pts_map.reshape(f_count, 1, h * w, 3)
+    masks = paste_patch(det_masks[..., None], det_boxes, (h, w))[..., 0]
+    valid = ((masks >= 0.5) & _box_interior_mask((h, w), det_boxes)
+             & base_valid[:, None])
+    valid = valid.reshape(f_count, i_slots, h * w)
+    if gt_box3d is not None:
+        world = cam_to_world(pts_map, campose[:, None])        # (F, 1, N, 3)
+        inside = ((world > gt_box3d.amin(-2)[..., None, :])
+                  & (world < gt_box3d.amax(-2)[..., None, :])).all(-1)
+        cleaned = valid & inside
+        use_clean = cleaned.sum(-1) > p.clean_depth_min_points
+        valid = torch.where(use_clean[..., None], cleaned, valid)
+    idx, ok = masked_slots(valid, p.max_points)
+    pts = torch.gather(pts_map.expand(f_count, i_slots, h * w, 3), 2,
+                       idx[..., None].expand(idx.shape + (3,)))
+    nocs = _paste_at(det_nocs, det_boxes, (h, w), idx // w, idx % w)
+    zero = torch.zeros((), dtype=pts.dtype, device=pts.device)
+    return (torch.where(ok[..., None], pts, zero),
+            torch.where(ok[..., None], nocs, zero), ok)
 
 
 @strict_fp32()
@@ -239,8 +293,15 @@ def postprocess_frames(det_boxes, det_scores, det_classes, det_valid,
     With use_gt_gate=False (office mode) the 2D-IoU gate and GT depth
     cleaning are skipped and the objectness gate is 0.01.  All F * I slots
     go through one extraction call: "grid" runs the plain version,
-    "pallas" the K2 kernel on a CUDA tensor."""
+    "pallas" the K2 kernel on a CUDA tensor, "full" `full_extract`.  The
+    detector's outputs must be float32 (or float64): the pose stage never
+    runs in a reduced precision, whatever the detector's compute dtype."""
     _check_extraction(cfg)
+    low = [t.dtype for t in (det_boxes, det_masks, det_nocs)
+           if t.dtype in (torch.bfloat16, torch.float16)]
+    if low:
+        raise TypeError(f"the pose stage takes float32 detections, got "
+                        f"{low[0]}")
     c = cfg.combined
     f_count, i_slots = det_boxes.shape[:2]
     dt = det_boxes.dtype
@@ -268,19 +329,27 @@ def postprocess_frames(det_boxes, det_scores, det_classes, det_valid,
                             cfg.pose.ransac_sample_size), generator,
                            det_boxes.device)
 
-    g = int(round(cfg.pose.max_points ** 0.5))
-    extract = pose_extract if cfg.pose.extraction == "pallas" \
-        else grid_extract
-    s = f_count * i_slots
-    feats, bvals = extract(
-        det_nocs.reshape((s,) + det_nocs.shape[2:]).to(dt).contiguous(),
-        det_masks.reshape((s,) + det_masks.shape[2:]).to(dt).contiguous(),
-        det_boxes.reshape(s, 4).contiguous(), depth.contiguous(),
-        intrinsics.contiguous(), g)
-    feats = feats.reshape(f_count, i_slots, g * g, 6)
-    bvals = bvals.reshape(f_count, i_slots, g * g)
-    poses = pose_from_points(feats[..., :3], feats[..., 3:], bvals,
-                             campose[:, None], draws, cfg, matched_gt_box3d)
+    if cfg.pose.extraction == "full":
+        pts, nocs, bvals = full_extract(det_nocs.to(dt), det_masks.to(dt),
+                                        det_boxes, depth, campose,
+                                        intrinsics, matched_gt_box3d, cfg)
+        matched_gt_box3d = None     # cleaned on the pixel map already
+    else:
+        g = int(round(cfg.pose.max_points ** 0.5))
+        extract = pose_extract if cfg.pose.extraction == "pallas" \
+            else grid_extract
+        s = f_count * i_slots
+        feats, bvals = extract(
+            det_nocs.reshape((s,) + det_nocs.shape[2:]).to(dt).contiguous(),
+            det_masks.reshape((s,) + det_masks.shape[2:]).to(dt)
+            .contiguous(),
+            det_boxes.reshape(s, 4).contiguous(), depth.contiguous(),
+            intrinsics.contiguous(), g)
+        feats = feats.reshape(f_count, i_slots, g * g, 6)
+        pts, nocs = feats[..., :3], feats[..., 3:]
+        bvals = bvals.reshape(f_count, i_slots, g * g)
+    poses = pose_from_points(pts, nocs, bvals, campose[:, None], draws, cfg,
+                             matched_gt_box3d)
 
     return FrameDetections(
         valid=keep & poses.valid, classes=det_classes,

@@ -25,7 +25,6 @@ from __future__ import annotations
 from typing import Dict, Hashable, List, Sequence
 
 import numpy as np
-from scipy.optimize import linear_sum_assignment
 
 
 def norm2squared_matrix(objs: np.ndarray, hyps: np.ndarray,
@@ -94,6 +93,7 @@ class MOTAccumulator:
         if rem_g and rem_h:
             sub = dists[np.ix_(rem_g, rem_h)]
             cost = np.where(np.isnan(sub), 1e18, sub)
+            from scipy.optimize import linear_sum_assignment
             rows, cols = linear_sum_assignment(cost)
             for r, c in zip(rows, cols):
                 if np.isnan(sub[r, c]):
@@ -134,6 +134,7 @@ class MOTAccumulator:
         overlap = np.zeros((len(g_ids), len(h_ids)))
         for (g, h), n in self.pair_frames.items():
             overlap[gi[g], hi[h]] = n
+        from scipy.optimize import linear_sum_assignment
         rows, cols = linear_sum_assignment(-overlap)
         return int(overlap[rows, cols].sum())
 

@@ -102,13 +102,23 @@ def _models(mode="gn"):
 
 
 @functools.lru_cache(maxsize=1)
-def _jax_rpn():
-    """JAX's FPN features and RPN head outputs of the "gn" model, compiled
-    and computed once for the tests that start from them (under x64)."""
+def _jax_gn():
+    """JAX's FPN features, RPN head outputs and `predict` outputs of the
+    "gn" model, from one program compiled and run once (under x64) for the
+    tests that start from them."""
     cfg_j, det_j, params, det_t, images = _models()
-    return jit_run(lambda p, x: det_j.apply(
-        p, x, method=lambda m, x: (lambda f: (f, m.rpn_head(f)))(
-            m.backbone(m._normalise(x)))), params, jnp.asarray(images))
+
+    def run(m, x):
+        feats = m.backbone(m._normalise(x))
+        return feats, m.rpn_head(feats), m.predict(x)
+
+    return jit_run(lambda p, x: det_j.apply(p, x, method=run), params,
+                   jnp.asarray(images))
+
+
+def _jax_rpn():
+    """(FPN features, RPN head outputs) of `_jax_gn`."""
+    return _jax_gn()[:2]
 
 
 @pytest.fixture(autouse=True)
@@ -289,8 +299,9 @@ def test_import_config_is_a_faithful_copy():
 def test_predict(mode):
     cfg_j, det_j, params, det_t, images = _models(mode)
     assert cfg_j.detection.fast_nms == (mode == "gn")
-    want = jit_run(lambda p, x: det_j.apply(p, x, method=MaskRCNNJ.predict),
-                   params, jnp.asarray(images))
+    want = _jax_gn()[2] if mode == "gn" else jit_run(
+        lambda p, x: det_j.apply(p, x, method=MaskRCNNJ.predict),
+        params, jnp.asarray(images))
     got = det_t.predict(to_torch(images))
     ok = np.asarray(want.valid)
     assert ok.any()
@@ -304,9 +315,119 @@ def test_predict(mode):
 
 
 def test_unported_detector_options_raise():
+    """Every compute dtype and norm the JAX package takes builds (bf16 with
+    float32 parameters); unknown values raise ValueError."""
     cfg = port_config(_tiny_config()).detection
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskRCNNT(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+    bf16 = MaskRCNNT(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                     device="cpu")
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    assert bf16.backbone.dtype == bf16.box_head.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        MaskRCNNT(dataclasses.replace(cfg, compute_dtype="float16"),
                   device="cpu")
     with pytest.raises(ValueError, match="unknown norm"):
         MaskRCNNT(dataclasses.replace(cfg, norm="batch"), device="cpu")
+
+
+# ---------------------------------------------------------------- bf16
+#
+# detection.compute_dtype="bfloat16": parameters stay float32 and each
+# layer computes in bfloat16 (flax's `dtype=`), GroupNorm statistics in
+# float32.  One head is a few bf16 roundings (2^-8 relative each) from the
+# same computation in JAX: its outputs agree within 2e-2 relative (L2;
+# 2e-3 to 8e-3 measured).  Through R50-FPN's 53 random layers the
+# rounding errors grow instead: JAX's own bf16 features sit 0.11-0.17
+# (relative L2) from its float32 ones on these weights, the port's
+# 0.14-0.19, and the two bf16 runs 0.13-0.19 from each other; each of the
+# three distances must stay within 0.3.
+
+BF16_HEAD_RTOL = 2e-2
+BF16_FEATURE_RTOL = 0.3
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _bf16_heads(c):
+    """(flax head, port head) pairs at bfloat16 for the tiny config."""
+    from mot3d_tpu.models import mask_rcnn as mrcnn_j
+    from mot3d_tpu_torch.models import mask_rcnn as mrcnn_t
+    j16, t16 = jnp.bfloat16, torch.bfloat16
+    ch, r = c.fpn_channels, c.box_pooler_resolution
+    return {
+        "box": (mrcnn_j.BoxHead(c.num_classes, c.box_head_width, j16),
+                mrcnn_t.BoxHead(ch, r, c.num_classes, c.box_head_width,
+                                t16), r),
+        "mask": (mrcnn_j.MaskHead(c.num_classes, c.mask_head_width, j16),
+                 mrcnn_t.MaskHead(ch, c.num_classes, c.mask_head_width, t16),
+                 14),
+        "voxel": (voxel_j.Pix2VoxDecoder(c.head_width_mult, j16),
+                  voxel_t.Pix2VoxDecoder(ch, 14, c.head_width_mult,
+                                         dtype=t16), 14),
+        "nocs": (nocs_j.NocsDecoder(j16), nocs_t.NocsDecoder(ch, dtype=t16),
+                 14),
+        "nocs_bins": (nocs_j.NocsBinDecoder(8, j16),
+                      nocs_t.NocsBinDecoder(ch, 8, dtype=t16), 14),
+    }
+
+
+@pytest.mark.parametrize("head", ["box", "mask", "voxel", "nocs",
+                                  "nocs_bins"])
+def test_bf16_heads_match_jax(head):
+    c = _tiny_config().detection
+    module_j, module_t, r = _bf16_heads(c)[head]
+    x = np.random.default_rng(9).normal(
+        size=(3, r, r, c.fpn_channels)).astype(np.float32)
+    params = random_params(module_j, jnp.asarray(x), seed=10)
+    module_t.load_state_dict(flax_to_state_dict(params), strict=True)
+    want = jax.tree_util.tree_leaves(
+        jit_run(module_j.apply, params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = module_t.eval()(to_torch(x))
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        assert _rel(g.numpy(), w) <= BF16_HEAD_RTOL, head
+    assert all(p.dtype == torch.float32 for p in module_t.parameters())
+
+
+def test_bf16_detector_near_jax_and_float32():
+    """The tiny gn detector at bfloat16 from the float32 weights: FPN
+    features against JAX's at bfloat16 and both against float32 (the
+    float64 run of `_jax_rpn`, rounded to float32 by the flax model);
+    `predict` runs with float32 outputs and finds detections; the bf16
+    model's state_dict is the float32 one."""
+    cfg_j, det_j, params64, det_t64, images = _models()
+    feats_f32, _ = _jax_rpn()
+    c16 = dataclasses.replace(cfg_j.detection, compute_dtype="bfloat16")
+    det_j16 = MaskRCNNJ(c16)
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                    params64)
+    img = jnp.asarray(images, jnp.float32)
+    feats_j16 = jit_run(lambda p, x: det_j16.apply(
+        p, x, method=lambda m, x: m.backbone(m._normalise(x))), params, img)
+    cfg_t = port_config(cfg_j)
+    det_t16 = MaskRCNNT(dataclasses.replace(cfg_t.detection,
+                                            compute_dtype="bfloat16"),
+                        device="cpu").eval()
+    sd = mask_rcnn_state_dict(params, cfg_t)
+    det_t16.load_state_dict(sd, strict=True)
+    assert all(v.dtype == sd[k].dtype == torch.float32
+               for k, v in det_t16.state_dict().items() if k in sd)
+    with torch.no_grad():
+        feats_t16 = det_t16.features(to_torch(np.asarray(img)))
+    for lvl, (ft, fj, f32) in enumerate(zip(feats_t16, feats_j16,
+                                             feats_f32)):
+        assert ft.dtype == torch.float32 and fj.dtype == jnp.float32
+        ft = ft.permute(0, 2, 3, 1).numpy()
+        assert _rel(fj, f32) <= BF16_FEATURE_RTOL, f"JAX P{lvl + 2}"
+        assert _rel(ft, f32) <= BF16_FEATURE_RTOL, f"port P{lvl + 2}"
+        assert _rel(ft, fj) <= BF16_FEATURE_RTOL, f"port vs JAX P{lvl + 2}"
+    dets = det_t16.predict(to_torch(np.asarray(img)))
+    assert dets.valid.any()
+    for name in ("boxes", "scores", "masks", "voxels", "nocs"):
+        t = getattr(dets, name)
+        assert t.dtype == torch.float32 and torch.isfinite(t).all(), name

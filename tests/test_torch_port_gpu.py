@@ -354,3 +354,86 @@ def test_siamese_step_on_the_card_matches_the_cpu(tmp_path):
     for k, v in p_c.items():
         np.testing.assert_allclose(p_g[k].numpy(), v.numpy(), atol=1e-5,
                                    err_msg=k)
+
+
+def _tiny_office_cfg():
+    from mot3d_tpu_torch.config import apply_overrides, default_config
+    from torch_port_helpers import OFFICE_TINY
+    return apply_overrides(default_config(), OFFICE_TINY)
+
+
+def test_office_frame_on_the_card_matches_the_cpu(tmp_path):
+    """One office frame through `office_inference` in both tracker modes on
+    the card and on the CPU, the same weights (mask predictor raised so
+    masks pass 0.5) and draws, TF32 off: the same detections, locations
+    within 1e-3 (float32 fits summed in another order), K1 twice per frame
+    in heuristic mode and never in F2F mode."""
+    from mot3d_tpu_torch.data.fixtures import write_office_fixture
+    from mot3d_tpu_torch.data.office import OfficeDataset, office_inference
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+
+    dev = _cuda()
+    cfg = _tiny_office_cfg()
+    write_office_fixture(str(tmp_path), 1, 1, seed=3, hw=(128, 128),
+                         intrinsics=(128.0, 128.0, 63.5, 63.5))
+    ds = OfficeDataset(str(tmp_path), (64, 64))
+    torch.manual_seed(0)
+    model = MaskRCNN(cfg.detection, device="cpu")
+    with torch.no_grad():
+        model.mask_head.Conv_4.bias.fill_(3.0)
+    draws = torch.randint(0, 2**31 - 1, (1, cfg.detection.detections_per_image,
+                                         cfg.pose.ransac_iters,
+                                         cfg.pose.ransac_sample_size),
+                          generator=torch.Generator().manual_seed(0))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for mode in ("heuristic", "f2f"):
+            out = {}
+            for d in ("cpu", dev):
+                k1.launches.reset()
+                m = MaskRCNN(cfg.detection, device=d)
+                m.load_state_dict(model.state_dict())
+                _, frames = office_inference(cfg, m, ds, "scene00",
+                                             tracker=mode, device=d,
+                                             draws=draws)
+                out[str(d)] = (frames[0], k1.launches.count)
+            (f_c, _), (f_g, n1) = out["cpu"], out["cuda"]
+            assert n1 == (2 if mode == "heuristic" else 0)
+            assert len(f_g) == len(f_c) >= 1
+            for a, b in zip(f_g, f_c):
+                assert a["cls"] == b["cls"]
+                np.testing.assert_allclose(a["loc"], b["loc"], atol=1e-3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_bf16_predict_on_the_card():
+    """The tiny detector at detection.compute_dtype="bfloat16" on the card:
+    float32 parameters, finite float32 outputs, FPN features within 0.3
+    (relative L2) of the float32 model's on the same weights (random
+    weights grow bf16 rounding through the 53 layers: 0.14-0.19 on the
+    CPU, tests/test_torch_port_detector.py)."""
+    import dataclasses
+
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+
+    dev = _cuda()
+    cfg = _tiny_office_cfg().detection
+    torch.manual_seed(0)
+    m32 = MaskRCNN(cfg, device=dev)
+    m16 = MaskRCNN(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                   device=dev)
+    m16.load_state_dict(m32.state_dict())
+    assert all(p.dtype == torch.float32 for p in m16.parameters())
+    img = torch.rand(2, cfg.pad_height, cfg.pad_width, 3,
+                     generator=torch.Generator().manual_seed(1)).to(dev) * 255
+    with torch.no_grad():
+        for a, b in zip(m16.features(img), m32.features(img)):
+            assert a.dtype == torch.float32
+            assert float((a - b).norm() / b.norm()) <= 0.3
+    dets = m16.predict(img)
+    for name in ("boxes", "scores", "masks", "voxels", "nocs"):
+        t = getattr(dets, name)
+        assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())

@@ -1,5 +1,6 @@
 """Parity of the port's pose stage (mot3d_tpu_torch.pose and the K2 kernel's
-plain version) against the JAX package, on the CPU.
+plain version) against the JAX package, on the CPU; also the "full"
+extraction mode and its compaction (`gather_masked_values`).
 
 Tolerances: extraction feats atol 2e-5 (the two frameworks associate the
 2 x 2 bilinear taps differently; values are O(1)), valid exact.  Pose
@@ -19,13 +20,19 @@ import pytest
 import torch
 
 from __graft_entry__ import _tiny_config
+from mot3d_tpu.geometry.backproject import gather_masked_values as gather_j
 from mot3d_tpu.geometry.backproject import make_intrinsics as intr_j
 from mot3d_tpu.geometry.transforms import euler_to_rotmat
 from mot3d_tpu.ops.pallas import pose_extract as pe_j
 from mot3d_tpu.pose.extraction import grid_extract as grid_j
 from mot3d_tpu.pose.pipeline import postprocess_frame as post_j
+from mot3d_tpu_torch.geometry.backproject import \
+    gather_masked_points as gather_points_t
+from mot3d_tpu_torch.geometry.backproject import \
+    gather_masked_values as gather_t
 from mot3d_tpu_torch.pose.extraction import grid_extract as grid_t
 from mot3d_tpu_torch.pose.pipeline import postprocess_frame as post_t
+from mot3d_tpu_torch.pose.pipeline import postprocess_frames as post_frames_t
 from torch_port_helpers import jit_run, port_config, slot_draws, to_torch
 
 torch.set_num_threads(1)
@@ -225,3 +232,81 @@ def test_postprocess_frame_matches_jax(extraction, use_gt_gate):
         np.testing.assert_allclose(getattr(out_t, name).numpy(),
                                    np.asarray(getattr(out_j, name)),
                                    atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["under_full", "over_full", "exactly_full",
+                                  "empty"])
+def test_gather_masked_values_matches_jax(case):
+    """Raster-order compaction into 128 slots: the values (invalid slots
+    zeroed), the validity and the source indices of the valid slots equal
+    JAX's; over-full takes JAX's even stride."""
+    rng = np.random.default_rng(8)
+    values = rng.normal(size=(24, 20, 5)).astype(np.float32)
+    share = {"under_full": 0.15, "over_full": 0.8, "exactly_full": None,
+             "empty": 0.0}[case]
+    if share is None:
+        valid = np.zeros(24 * 20, bool)
+        valid[rng.choice(24 * 20, 128, replace=False)] = True
+        valid = valid.reshape(24, 20)
+    else:
+        valid = rng.uniform(size=(24, 20)) < share
+    out_j = jax.jit(gather_j, static_argnums=2)(jnp.asarray(values),
+                                                jnp.asarray(valid), 128)
+    out_t = gather_t(to_torch(values), to_torch(valid), 128)
+    ok = np.asarray(out_j[1])
+    assert ok.sum() == min(valid.sum(), 128)
+    np.testing.assert_array_equal(out_t[1].numpy(), ok)
+    np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
+    np.testing.assert_array_equal(out_t[2].numpy()[ok],
+                                  np.asarray(out_j[2])[ok])
+    pts_t, ok_t = gather_points_t(to_torch(values[..., :3]),
+                                  to_torch(valid), 128)
+    np.testing.assert_array_equal(pts_t.numpy(),
+                                  np.asarray(out_j[0])[:, :3])
+
+
+@pytest.mark.parametrize("use_gt_gate", [True, False])
+def test_postprocess_frames_full_mode_matches_jax_x64(use_gt_gate):
+    """pose.extraction="full" on two frames at once against JAX's
+    `postprocess_frame` per frame (vmapped), in float64 (JAX under x64,
+    draws rebuilt there): masks pasted at >= 0.5, frame-shared
+    backprojection, GT depth cleaning before compaction (frame 0's first
+    GT box cuts its object), over-full slots strided.  Valid and classes
+    exact; translations, scales, Euler angles and world boxes 1e-9."""
+    cfg_j = _tiny_config()
+    cfg_j = cfg_j.replace(pose=cfg_j.pose.__class__(
+        **{**cfg_j.pose.__dict__, "extraction": "full"}))
+    cfg_t = port_config(cfg_j)
+    scenes = [_scene(seed=s) for s in (0, 1)]
+    names = ("det_boxes", "det_scores", "det_classes", "det_valid",
+             "det_masks", "det_voxels", "det_nocs", "gt_boxes2d", "gt_valid",
+             "depth", "campose")
+
+    def stacked(n):
+        a = np.stack([sc[n] for sc in scenes])
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+
+    with jax.enable_x64(True):
+        intr = np.asarray(intr_j(64.0, 64.0, 31.5, 31.5), np.float64)
+        keys = jax.random.split(jax.random.PRNGKey(3), 2)
+        out_j = jit_run(jax.vmap(
+            lambda *a: post_j(*a[:11], intr, a[11], a[12], cfg_j,
+                              use_gt_gate=use_gt_gate)),
+            *(jnp.asarray(stacked(n)) for n in names),
+            jnp.asarray(stacked("gt_boxes3d_cropped")), keys)
+        draws = np.stack([slot_draws(k, 4, cfg_j.pose.ransac_iters,
+                                     cfg_j.pose.ransac_sample_size)
+                          for k in keys])
+        out_j = jax.tree_util.tree_map(np.asarray, out_j)
+    out_t = post_frames_t(*(to_torch(stacked(n)) for n in names),
+                          to_torch(intr),
+                          to_torch(stacked("gt_boxes3d_cropped")), cfg_t,
+                          use_gt_gate=use_gt_gate, draws=to_torch(draws))
+    assert out_j.valid.sum() >= 3 and out_j.translations.dtype == np.float64
+    for name in ("valid", "classes"):
+        np.testing.assert_array_equal(getattr(out_t, name).numpy(),
+                                      getattr(out_j, name), err_msg=name)
+    for name in ("translations", "scales", "rotations", "pred_boxes"):
+        np.testing.assert_allclose(getattr(out_t, name).numpy(),
+                                   getattr(out_j, name), atol=1e-9, rtol=0,
+                                   err_msg=name)

@@ -44,7 +44,8 @@ from mot3d_tpu.train import tracking_trainer as trk_trainer_j
 from mot3d_tpu_torch import cli
 from mot3d_tpu_torch.config import Config
 from mot3d_tpu_torch.data.detection_loader import load_frame, stack_samples
-from mot3d_tpu_torch.data.fixtures import write_motfront_fixture
+from mot3d_tpu_torch.data.fixtures import (write_motfront_fixture,
+                                           write_office_fixture)
 from mot3d_tpu_torch.data.h5_io import read_frame_h5
 from mot3d_tpu_torch.data.motfront import MOTFrontDataset
 from mot3d_tpu_torch.export import DetectorExporter
@@ -262,8 +263,9 @@ def test_cli_runs_the_workflow_on_the_cpu(root, tmp_path, capsys):
     """train-detection -> export-detections (a subprocess of
     `python -m mot3d_tpu_torch.cli`, oracle) -> train-tracking ->
     infer-tracking (also with --export-vis) -> train-combined, with
-    --device cpu and tiny overrides; the subcommand not ported raises;
-    without a checkpoint infer-tracking refuses random weights."""
+    --device cpu and tiny overrides, then infer-office with the trained
+    detector's checkpoint on an office tree; without a checkpoint
+    infer-tracking refuses random weights."""
     cfg = _tiny()
     ov = _overrides(port_config(cfg.replace(
         combined=dataclasses.replace(cfg.combined, checkpoint_period=1),
@@ -302,5 +304,11 @@ def test_cli_runs_the_workflow_on_the_cpu(root, tmp_path, capsys):
     cli.main(["train-combined", "--data", root, "--out", str(out / "comb"),
               "--max-iter", "1", "--det-ckpt", str(out / "det"), *dev, *ov])
     assert os.path.exists(out / "comb" / "ckpt" / "step_1.pt")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["infer-office", *dev])
+    write_office_fixture(str(out / "office"), num_scenes=1, num_frames=2,
+                         hw=(96, 128))
+    capsys.readouterr()
+    cli.main(["infer-office", "--data", str(out / "office"), "--ckpt",
+              str(out / "det"), "--out", str(out / "office_out"),
+              "--max-frames", "1", *dev, *ov])
+    assert "restored checkpoint at step 1" in capsys.readouterr().out
+    assert (out / "office_out" / "scene00" / "trajectories.json").exists()

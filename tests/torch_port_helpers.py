@@ -27,6 +27,24 @@ def jit_run(fn, *args):
         compiler_options=FAST_COMPILE)(*args)
 
 
+# The tiny office detector of tests/test_office_inference.py (64 x 64
+# frames, backbone_width 0.25) as config overrides.
+OFFICE_TINY = [
+    "detection.pad_height=64", "detection.pad_width=64",
+    "detection.image_height=64", "detection.image_width=64",
+    "detection.rpn_pre_nms_topk_test=64",
+    "detection.rpn_post_nms_topk_test=16",
+    "detection.detections_per_image=4", "detection.max_instances=3",
+    "detection.anchor_sizes=16,32,64,128,256",
+    "detection.backbone_width=0.25", "detection.fpn_channels=64",
+    "detection.mask_head_width=32", "detection.box_head_width=128",
+    "detection.head_width_mult=0.125", "detection.fg_head_buffer=8",
+    "camera.height=64", "camera.width=64", "camera.fx=64.0", "camera.fy=64.0",
+    "pose.max_points=128", "pose.ransac_iters=16",
+    "pose.outlier_min_points=16",
+]
+
+
 def port_config(cfg):
     """mot3d_tpu Config -> the same values as a mot3d_tpu_torch Config."""
     sections = {}

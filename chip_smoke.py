@@ -6,7 +6,8 @@ Phases, one JSON line each; any failure exits non-zero:
   1. device: name, count, torch and CUDA versions, nvidia-smi name and
      power limit;
   2. build: the CUDA kernels of mot3d_tpu_torch/csrc into build/kernels
-     (nvcc time and the -Xptxas -v lines);
+     (nvcc time and the -Xptxas -v lines) and, started together with
+     them, the native host libraries of native/ into build/native (g++);
   3. K1 (kNN outlier statistic) against its plain version on every row at
      the main path's shapes and in full mode, with call times and the
      profiler's device times; then edge cases (k = 1, 7, 12, 32, C = 1 and
@@ -90,9 +91,23 @@ Phases, one JSON line each; any failure exits non-zero:
      same weights, beside float32 in turns (detector seconds, frames/s,
      peak memory), FPN features and kept detections against float32
      (BF16_GATES), float32 inputs to the pose stage;
+ 17. `data_parallel`: one spawned rank per card, at least two, at full
+     width (NCCL with a card each, gloo with both on cuda:0 on a one-card
+     machine): the combined
+     step data-parallel for 3 steps on phase train's windows (one per rank,
+     the global batch's draws from one seeded generator) under
+     deterministic algorithms: the all-reduced gradients against one
+     process's step on both windows (DP_GRAD_GATE), parameters bit-equal
+     across the ranks, K1 4 launches per rank per step, ms per step and
+     the all_reduce ms per model; sharded serving of the main path's four
+     sequences against the unsharded run (K1 2 launches per sequence per
+     rank); the combined step through a world-size-1 NCCL group in this
+     process; the native RLE codec and voxelizer (built in phase 2 beside
+     the kernels) against their numpy versions;
 then the kernels line (with each kernel's launches on the training path,
-in the workflow, on the reference-weights path, the office path and with
-"full" extraction), the nvidia-smi line and the final status line.
+in the workflow, on the reference-weights path, the office path, with
+"full" extraction and in phase data_parallel), the nvidia-smi line and the
+final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
 With --kernels-only it stops after phase 4: copied into another checkout
@@ -195,10 +210,25 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernels (nvcc) and the native host libraries (g++), their
+    builds started together; returns the host libraries' build seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mot3d_tpu_torch.ops.cuda.build import build
-    res = build()
+    from mot3d_tpu_torch.utils import native
+
+    with ThreadPoolExecutor(3) as pool:
+        kernels = pool.submit(build)
+        host = {name: pool.submit(native.build, name)
+                for name in native.LIBRARIES}
+        res = kernels.result()
+        host = {name: f.result() for name, f in host.items()}
+    host_s = {name: {"seconds": b.seconds, "cached": b.cached}
+              for name, b in host.items()}
     emit({"phase": "build", "seconds": round(res.seconds, 2),
-          "cached": res.cached, "ptxas": list(res.ptxas)})
+          "cached": res.cached, "ptxas": list(res.ptxas),
+          "host_libraries": host_s})
+    return host_s
 
 
 def _clouds(rng, b, n, dev):
@@ -578,6 +608,19 @@ def _run_staged(stepper, seqs, draws, q):
     return dets, frames, probs, obj_ids, times
 
 
+def _main_inputs(seed, cfg):
+    """The main path's four synthetic sequences (the first is the warm-up)
+    and their RANSAC draws (4, 1, T, I, iters, S), from `seed`."""
+    det_c, trk_c, pose_c = cfg.detection, cfg.tracking, cfg.pose
+    rng = np.random.default_rng(seed)
+    seqs = [_sequence(rng, cfg, 0.1 * q) for q in range(4)]
+    draws = rng.integers(0, 2 ** 31 - 1, (4, 1, trk_c.seq_len,
+                                          det_c.detections_per_image,
+                                          pose_c.ransac_iters,
+                                          pose_c.ransac_sample_size))
+    return seqs, torch.from_numpy(draws)
+
+
 def phase_main(seed, cfg, dev):
     from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
     from mot3d_tpu_torch.models.mpn import TrackerModel
@@ -586,20 +629,14 @@ def phase_main(seed, cfg, dev):
     from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
     from mot3d_tpu_torch.tracking.graph_builder import make_template
 
-    det_c, trk_c, pose_c = cfg.detection, cfg.tracking, cfg.pose
+    det_c, trk_c = cfg.detection, cfg.tracking
     torch.manual_seed(seed)
     det = MaskRCNN(det_c, device=dev)
     trk = TrackerModel(cfg.graph, device=dev)
     template = make_template(trk_c.seq_len, det_c.detections_per_image,
                              trk_c.max_frame_dist)
     step = make_sequence_infer_step(det, trk, template, cfg, device=dev)
-    rng = np.random.default_rng(seed)
-    seqs = [_sequence(rng, cfg, 0.1 * q) for q in range(4)]
-    draws = rng.integers(0, 2 ** 31 - 1, (4, 1, trk_c.seq_len,
-                                          det_c.detections_per_image,
-                                          pose_c.ransac_iters,
-                                          pose_c.ransac_sample_size))
-    draws = torch.from_numpy(draws)
+    seqs, draws = _main_inputs(seed, cfg)
 
     _run_staged(step, seqs, draws, 0)            # warm-up
     # Correctness of the composed step on the warm-up sequence.
@@ -951,20 +988,6 @@ def _train_frames(rng, cfg, cam_x=0.0):
     return frames
 
 
-def _open_train_gates(cfg):
-    """Every gate open, as `__graft_entry__.py:140-144` opens them, so each
-    detection slot of the random-weight detector flows through pose into
-    the graph (with closed gates the tracking loss is identically 0); the
-    detector's own 0.05 score gate too, since a few updates push the
-    random classifier's foreground scores under it."""
-    return cfg.replace(
-        detection=dataclasses.replace(cfg.detection, score_thresh_test=-1.0),
-        combined=dataclasses.replace(cfg.combined, objectness_thres=-1.0,
-                                     iou2d_thres=-1.0),
-        pose=dataclasses.replace(cfg.pose, min_inlier_ratio=0.0),
-        tracking=dataclasses.replace(cfg.tracking, box_iou_thres=0.0))
-
-
 def _trainer(cfg, out_dir, dev):
     """A CombinedTrainer whose mask predictor passes the 0.5 extraction
     threshold: with torch's initialisation every mask logit of the random
@@ -1038,6 +1061,7 @@ def phase_train(seed, cfg, dev, warmup=3, timed=10):
     from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
     from mot3d_tpu_torch.ops.cuda import nms as k3
     from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.parallel.dryrun import open_gates
     from mot3d_tpu_torch.parallel.train_step import (CombinedBatch,
                                                      make_combined_train_step,
                                                      make_window_draws)
@@ -1050,7 +1074,7 @@ def phase_train(seed, cfg, dev, warmup=3, timed=10):
     # Training runs at cuDNN's default algorithm choice, as a user's run
     # does; main() pins deterministic algorithms for the kernel phases.
     torch.backends.cudnn.deterministic = False
-    cfg_o = _open_train_gates(cfg)
+    cfg_o = open_gates(cfg)
     rng = np.random.default_rng(seed + 10)
     frames = _train_frames(rng, cfg_o)
     t = cfg.combined.batch_size
@@ -2260,6 +2284,7 @@ def phase_full_extraction(cfg, det, trk, template, seqs, draws, smi, dev):
     from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
     from mot3d_tpu_torch.ops.cuda import nms as k3
     from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.parallel.dryrun import open_gates
     from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
 
     cfg_f = cfg.replace(pose=dataclasses.replace(cfg.pose,
@@ -2289,7 +2314,7 @@ def phase_full_extraction(cfg, det, trk, template, seqs, draws, smi, dev):
     peak = torch.cuda.max_memory_allocated()
     # Both modes on the same detections of the office detector (masks that
     # pass 0.5) with every gate open, so the GT-gated slots reach the fit.
-    cfg_o, model = _office_model(_open_train_gates(cfg), det, dev)
+    cfg_o, model = _office_model(open_gates(cfg), det, dev)
     steps = {mode: make_sequence_infer_step(
         model, trk, template, cfg_o.replace(pose=dataclasses.replace(
             cfg_o.pose, extraction=mode)), device=dev)
@@ -2386,6 +2411,380 @@ def phase_bf16(cfg, det, trk, template, seqs, draws, smi, dev):
     check(matched >= BF16_GATES["kept_matched_share_min"],
           f"bf16: only {matched} of float32's detections kept")
 
+# ------------------------------------------------------- data parallel
+
+# The all-reduced gradients of the ranks against one process's on the
+# same windows: per tensor, the largest difference over the largest
+# reference value.  Only the order of the sums differs.
+DP_GRAD_GATE = 1e-5
+# Sharded serving against the unsharded run, as tests/test_parallel.py.
+DP_SERVE_TOL = 1e-4
+DP_STEPS = 3
+
+
+def _dp_models(seed, cfg, dev):
+    """The combined step's full-width models from `seed`, the mask
+    predictor raised as phase train raises it."""
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.models.mpn import TrackerModel
+
+    torch.manual_seed(seed)
+    det = MaskRCNN(cfg.detection, device=dev)
+    trk = TrackerModel(cfg.graph, device=dev)
+    with torch.no_grad():
+        det.mask_head.Conv_4.bias.fill_(3.0)
+    return det, trk
+
+
+def _dp_state(cfg, det, trk):
+    from mot3d_tpu_torch.parallel.train_step import CombinedTrainState
+    from mot3d_tpu_torch.train.combined_trainer import (detection_optimizer,
+                                                        tracking_optimizer)
+    return CombinedTrainState(det, *detection_optimizer(cfg, det), trk,
+                              *tracking_optimizer(cfg, trk))
+
+
+def _dp_windows(seed, cfg, count):
+    """`count` 2-frame windows of phase train's synthetic sequence."""
+    from mot3d_tpu_torch.train.combined_trainer import \
+        samples_to_combined_window
+
+    frames = _train_frames(np.random.default_rng(seed + 10), cfg)
+    t = cfg.combined.batch_size
+    return [samples_to_combined_window(frames[i:i + t]) for i in range(count)]
+
+
+def _stack(windows):
+    return type(windows[0])(*(torch.stack(x) for x in zip(*windows)))
+
+
+def _grads(*models):
+    return {f"{i}.{n}": p.grad.detach().clone()
+            for i, m in enumerate(models) for n, p in m.named_parameters()}
+
+
+def _grad_rel_err(got, want):
+    """The largest per-tensor |got - want|_max / |want|_max and its name."""
+    worst = (0.0, None)
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        err /= max(float(w.abs().max()), 1e-30)
+        worst = max(worst, (err, name), key=lambda e: e[0])
+    return worst
+
+
+def _one_process_grads(cfg, init, template, batch, seed, dev):
+    """The gradients of one process's combined step (no mesh) from the
+    weights `init` on `batch`, its draws from the same seeded generator."""
+    from mot3d_tpu_torch.parallel.train_step import make_combined_train_step
+
+    det, trk = _dp_models(seed, cfg, dev)
+    det.load_state_dict(init[0])
+    trk.load_state_dict(init[1])
+    step = make_combined_train_step(det, trk, template, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with _deterministic():
+        step(_dp_state(cfg, det, trk), batch, generator=gen)
+    return _grads(det, trk)
+
+
+def _all_reduce_ms(mesh, *models, reps=3):
+    """Median ms of `all_mean_grads` per model (its one all_reduce of the
+    flat gradient buffer), with the buffer's bytes."""
+    from mot3d_tpu_torch.parallel.mesh import all_mean_grads
+
+    out = []
+    for model in models:
+        params = list(model.parameters())
+        ms = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            all_mean_grads(mesh, params)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.append({"ms": float(np.median(ms)), "ms_all": ms,
+                    "bytes": sum(p.numel() * p.element_size()
+                                 for p in params)})
+    return out
+
+
+def _dp_rank(rank, nproc, port, seed, results):
+    """One rank of phase data_parallel (a spawned process): the combined
+    step data-parallel at full width, then sharded serving of the main
+    path's sequences; rank 0 also runs the one-process references."""
+    from mot3d_tpu_torch.config import Config
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.parallel.dryrun import open_gates
+    from mot3d_tpu_torch.parallel.infer_step import (SequenceBatch,
+                                                     make_sequence_infer_step)
+    from mot3d_tpu_torch.parallel.mesh import make_mesh, replicate, \
+        shard_batch
+    from mot3d_tpu_torch.parallel.multihost import init_distributed
+    from mot3d_tpu_torch.parallel.train_step import make_combined_train_step
+    from mot3d_tpu_torch.tracking.graph_builder import make_template
+
+    import torch.distributed as dist
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dev = init_distributed(f"127.0.0.1:{port}", nproc, rank)
+    try:
+        mesh = make_mesh()
+        base = Config()
+        cfg = open_gates(base)
+        out = {"rank": rank, "device": str(dev),
+               "device_name": torch.cuda.get_device_name(dev),
+               "backend": mesh.backend}
+        det, trk = _dp_models(seed, cfg, dev)
+        replicate(mesh, det)
+        replicate(mesh, trk)
+        init = [{k: v.clone() for k, v in m.state_dict().items()}
+                for m in (det, trk)] if rank == 0 else None
+        template = make_template(cfg.combined.batch_size,
+                                 cfg.detection.detections_per_image,
+                                 cfg.tracking.max_frame_dist)
+        state = _dp_state(cfg, det, trk)
+        step = make_combined_train_step(det, trk, template, cfg, mesh=mesh)
+        windows = _dp_windows(seed, cfg, nproc * DP_STEPS)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ms, k1_steps, losses = [], [], []
+        with _deterministic():
+            for s in range(DP_STEPS):
+                batch = _stack(windows[s * nproc:(s + 1) * nproc])
+                k1.launches.reset()
+                sync()
+                t0 = time.perf_counter()
+                state, metrics = step(state, shard_batch(mesh, batch),
+                                      generator=gen)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                k1_steps.append(k1.launches.count)
+                losses.append({k: float(v) for k, v in metrics.items()})
+                if s == 0:
+                    grads = _grads(det, trk)
+        out.update(step_ms=ms, median_step_ms=float(np.median(ms)),
+                   k1_launches_per_step=k1_steps, metrics=losses,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   all_reduce=_all_reduce_ms(mesh, det, trk))
+        # Bit-equal parameters: every rank against rank 0's broadcast.
+        flat = torch.cat([p.detach().reshape(-1) for m in (det, trk)
+                          for p in m.parameters()])
+        out["params_equal_rank0"] = bool(torch.equal(
+            flat, replicate(mesh, {"p": flat})["p"]))
+        del flat
+        if rank == 0:
+            want = _one_process_grads(cfg, init, template,
+                                      _stack(windows[:nproc]), seed, dev)
+            out["grad_rel_err"], out["grad_worst"] = _grad_rel_err(grads,
+                                                                    want)
+            del want
+        del grads, init, state, step, det, trk
+        torch.cuda.empty_cache()
+
+        # Sharded serving: the main path's three timed sequences and its
+        # warm-up one (repeated to a multiple of the ranks beyond four), at
+        # phase main's draws, with the gates open and the mask predictor
+        # raised so that detections reach the pose fit and the graph.
+        seqs, draws = _main_inputs(seed, base)
+        order = [(1, 2, 3, 0)[i % 4] for i in range(-(-4 // nproc) * nproc)]
+        batch = SequenceBatch(**{k: np.stack([seqs[q][k] for q in order])
+                                 for k in seqs[0]})
+        draws = draws[order, 0]
+        det_s, trk_s = (replicate(mesh, m) for m in _dp_models(seed, cfg,
+                                                               dev))
+        tmpl_s = make_template(cfg.tracking.seq_len,
+                               cfg.detection.detections_per_image,
+                               cfg.tracking.max_frame_dist)
+        serve = make_sequence_infer_step(det_s, trk_s, tmpl_s, cfg,
+                                         mesh=mesh)
+        serve(shard_batch(mesh, batch), draws=shard_batch(mesh, draws))
+        k1.launches.reset()
+        sync()
+        t0 = time.perf_counter()
+        got = serve(shard_batch(mesh, batch), draws=shard_batch(mesh, draws))
+        sync()
+        out["serve_s"] = time.perf_counter() - t0
+        out["serve_k1_launches"] = k1.launches.count
+        out["serve_local_sequences"] = len(order) // nproc
+        if rank == 0:
+            one = make_sequence_infer_step(det_s, trk_s, tmpl_s, cfg,
+                                           device=dev)
+            refs = [one(SequenceBatch(*(x[q:q + 1] for x in batch)),
+                        draws=draws[q:q + 1]) for q in range(len(order))]
+            ref = type(refs[0])(*(torch.cat(x) for x in zip(*refs)))
+            out["serve_equal"] = {n: bool(torch.equal(getattr(got, n),
+                                                      getattr(ref, n)))
+                                  for n in ("obj_ids", "valid", "classes")}
+            out["serve_max_abs_err"] = {
+                n: float((getattr(got, n) - getattr(ref, n)).abs().max())
+                for n in ("translations", "scores", "edge_probs")}
+            out["serve_finite"] = all(bool(torch.isfinite(x).all())
+                                      for x in got)
+            out["serve_valid"] = int(got.valid.sum())
+        results.put(out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_nccl_world_one(seed, cfg, dev):
+    """The combined step through a world-size-1 NCCL group in this
+    process: one step with the mesh (its all_reduce runs through NCCL)
+    against the same step without one."""
+    import torch.distributed as dist
+
+    from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
+    from mot3d_tpu_torch.parallel.dryrun import free_port, open_gates
+    from mot3d_tpu_torch.parallel.mesh import make_mesh
+    from mot3d_tpu_torch.parallel.multihost import init_distributed
+    from mot3d_tpu_torch.parallel.train_step import make_combined_train_step
+    from mot3d_tpu_torch.tracking.graph_builder import make_template
+
+    cfg = open_gates(cfg)
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = make_mesh()
+        check(mesh.backend == "nccl",
+              f"data_parallel: world-1 group on {mesh.backend}, not nccl")
+        det, trk = _dp_models(seed, cfg, dev)
+        init = [{k: v.clone() for k, v in m.state_dict().items()}
+                for m in (det, trk)]
+        template = make_template(cfg.combined.batch_size,
+                                 cfg.detection.detections_per_image,
+                                 cfg.tracking.max_frame_dist)
+        step = make_combined_train_step(det, trk, template, cfg, mesh=mesh)
+        batch = _stack(_dp_windows(seed, cfg, 1))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k1.launches.reset()
+        with _deterministic():
+            sync()
+            t0 = time.perf_counter()
+            _, metrics = step(_dp_state(cfg, det, trk), batch, generator=gen)
+            sync()
+        res = {"backend": mesh.backend, "size": mesh.size,
+               "step_ms": (time.perf_counter() - t0) * 1e3,
+               "k1_launches": k1.launches.count,
+               "tracking_loss": float(metrics["tracking_loss"])}
+        grads = _grads(det, trk)
+        res["all_reduce"] = _all_reduce_ms(mesh, det, trk)
+        res["grad_rel_err"], res["grad_worst"] = _grad_rel_err(
+            grads, _one_process_grads(cfg, init, template, batch, seed, dev))
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def _dp_host_libraries(seed, cfg, built):
+    """The native RLE codec and voxelizer against their numpy versions
+    (host seconds of each): the RLE of one training frame's masks (its GT
+    rectangles at full resolution, and the same with a fifth of their
+    pixels flipped): counts, strings and the IoU matrix; a cube mesh
+    voxelized solid at 32^3."""
+    from mot3d_tpu_torch.data import voxelize as vox
+    from mot3d_tpu_torch.evaluator import rle
+
+    frame = _train_frames(np.random.default_rng(seed + 10), cfg)[0]
+    rng = np.random.default_rng(seed)
+    masks = [m > 0.5 for m in frame.masks]
+    masks += [m ^ (rng.uniform(size=m.shape) < 0.2) for m in masks]
+    rles, enc_s = _timed(lambda: [rle.encode(m) for m in masks])
+    plain, enc_plain_s = _timed(lambda: [rle.encode_plain(m)
+                                         for m in masks])
+    strings = all(rle.to_string(a) == rle.to_string_plain(b)
+                  and np.array_equal(a["counts"], b["counts"])
+                  for a, b in zip(rles, plain))
+    iou, iou_s = _timed(rle.iou, rles, rles[::-1])
+    iou_plain, iou_plain_s = _timed(rle.iou_plain, rles, rles[::-1])
+    v = np.array([[x, y, z] for x in (0.25, 0.75) for y in (0.25, 0.75)
+                  for z in (0.25, 0.75)])
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                  [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                  [1, 5, 7], [1, 7, 3]])
+    grid, vox_s = _timed(vox.voxelize_fill, v, f, 32)
+    grid_plain, vox_plain_s = _timed(vox.voxelize_fill_plain, v, f, 32)
+    return {"build": built, "masks": [len(masks)] + list(masks[0].shape),
+            "rle_strings_equal": strings,
+            "rle_iou_equal": bool(np.array_equal(iou, iou_plain)),
+            "voxel_grids_equal": bool(np.array_equal(grid, grid_plain)),
+            "voxels_filled": int(grid.sum()),
+            "host_s": {"rle_encode": [enc_s, enc_plain_s],
+                       "rle_iou": [iou_s, iou_plain_s],
+                       "voxelize_fill": [vox_s, vox_plain_s]},
+            "host_s_order": "[native, numpy]"}
+
+
+def phase_data_parallel(seed, cfg, built, smi, dev):
+    """One rank per card, at least two, spawned at full width (NCCL with a
+    card each, gloo with both on cuda:0 on one card): the combined step
+    data-parallel for
+    DP_STEPS steps (one window per rank, draws of the global batch from
+    one seeded generator, gradients against one process's step on both
+    windows, parameters bit-equal across the ranks, K1 launches per rank
+    per step, ms per step, all_reduce ms per model) and sharded serving of
+    the main path's four sequences, gates open (against the unsharded
+    run); then the
+    combined step through a world-size-1 NCCL group, and the native host
+    libraries against their numpy versions."""
+    import torch.multiprocessing as mp
+
+    from mot3d_tpu_torch.parallel.dryrun import free_port
+
+    torch.cuda.empty_cache()
+    nproc = max(2, torch.cuda.device_count())
+    results = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(nproc, free_port(), seed, results),
+             nprocs=nproc, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = sorted((results.get() for _ in range(nproc)),
+                   key=lambda r: r["rank"])
+    nccl = _dp_nccl_world_one(seed, cfg, dev)
+    host = _dp_host_libraries(seed, cfg, built)
+    res = {"phase": "data_parallel", "card": smi,
+           "config": "default Config(), gates open; windows of 2 frames",
+           "ranks": ranks, "spawn_to_join_s": spawn_s,
+           "world_one_nccl": nccl, "host_libraries": host,
+           "gates": {"grad_rel_err_max": DP_GRAD_GATE,
+                     "serve_max_abs_err": DP_SERVE_TOL}}
+    emit(res)
+    r0 = ranks[0]
+    check(r0["grad_rel_err"] <= DP_GRAD_GATE,
+          f"data_parallel: all-reduced gradients differ from one process's "
+          f"by {r0['grad_rel_err']} ({r0['grad_worst']})")
+    for r in ranks:
+        check(r["params_equal_rank0"],
+              f"data_parallel: rank {r['rank']}'s parameters differ")
+        check(all(n == 4 for n in r["k1_launches_per_step"]),
+              f"data_parallel: K1 launches per step "
+              f"{r['k1_launches_per_step']} on rank {r['rank']}, expected 4")
+        check(r["serve_k1_launches"] == 2 * r["serve_local_sequences"],
+              f"data_parallel: K1 launched {r['serve_k1_launches']} times "
+              f"serving on rank {r['rank']}")
+        check(all(np.isfinite(v) for m in r["metrics"] for v in m.values()),
+              f"data_parallel: non-finite metrics on rank {r['rank']}")
+        check(all(m["tracking_loss"] > 0 for m in r["metrics"]),
+              "data_parallel: the tracking loss is 0 with open gates")
+    check(all(r0["serve_equal"].values()) and r0["serve_finite"],
+          f"data_parallel: sharded serving differs {r0['serve_equal']}")
+    check(r0["serve_valid"] > 0,
+          "data_parallel: no valid detection served with the gates open")
+    check(max(r0["serve_max_abs_err"].values()) <= DP_SERVE_TOL,
+          f"data_parallel: sharded serving {r0['serve_max_abs_err']}")
+    check(nccl["grad_rel_err"] <= DP_GRAD_GATE and nccl["k1_launches"] == 4,
+          f"data_parallel: world-1 NCCL step {nccl}")
+    check(host["rle_strings_equal"] and host["rle_iou_equal"]
+          and host["voxel_grids_equal"],
+          f"data_parallel: native host libraries {host}")
+    return {"knn_outlier": sum(sum(r["k1_launches_per_step"])
+                               + r["serve_k1_launches"] for r in ranks)
+            + nccl["k1_launches"], "pose_extract": 0, "nms": 0}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2407,7 +2806,7 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = Config()
     smi = phase_device()
-    phase_build()
+    built = phase_build()
     k1_res = phase_k1(rng, dev)
     k2_res = phase_k2(rng, dev, cfg)
     if args.kernels_only:
@@ -2430,6 +2829,7 @@ def main() -> int:
     full_launches = phase_full_extraction(cfg, det, trk, template, seqs,
                                           draws, smi, dev)
     phase_bf16(cfg, det, trk, template, seqs, draws, smi, dev)
+    dp_launches = phase_data_parallel(args.seed, cfg, built, smi, dev)
 
     kernels = [
         {"name": "knn_outlier", "route": "cuda",
@@ -2445,7 +2845,8 @@ def main() -> int:
          "workflow_device_ms": workflow_ms["knn_outlier"],
          "reference_launches": reference_launches["knn_outlier"],
          "office_launches": office_launches["knn_outlier"],
-         "full_launches": full_launches["knn_outlier"]},
+         "full_launches": full_launches["knn_outlier"],
+         "dp_launches": dp_launches["knn_outlier"]},
         {"name": "pose_extract", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/pose_extract.cu",
          "replaces": "mot3d_tpu/ops/pallas/pose_extract.py:129",
@@ -2460,7 +2861,8 @@ def main() -> int:
          "workflow_device_ms": workflow_ms["pose_extract"],
          "reference_launches": 0,
          "office_launches": office_launches["pose_extract"],
-         "full_launches": full_launches["pose_extract"]},
+         "full_launches": full_launches["pose_extract"],
+         "dp_launches": dp_launches["pose_extract"]},
         {"name": "nms", "route": "cuda",
          "source": "mot3d_tpu_torch/csrc/nms.cu",
          "replaces": "mot3d_tpu/ops/pallas/nms_kernel.py:81",
@@ -2475,7 +2877,8 @@ def main() -> int:
          "workflow_device_ms": workflow_ms["nms"],
          "reference_launches": reference_launches["nms"],
          "office_launches": office_launches["nms"],
-         "full_launches": full_launches["nms"]},
+         "full_launches": full_launches["nms"],
+         "dp_launches": dp_launches["nms"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -18,6 +18,10 @@ metrics and smoothing (h5py, cv2, matplotlib, PIL, tensorboard, scipy)
 are imported inside the functions that use them.  The
 CUDA kernels under `ops/cuda/` are built from `csrc/` on their first use on
 a CUDA tensor; a CPU tensor takes each kernel's plain PyTorch version.
+The native host libraries of `native/` (the RLE codec, the voxelizer) are
+built with g++ on their first use (`utils/native.py`).  Data parallelism
+runs one rank per GPU over `torch.distributed` (`parallel/mesh.py`,
+`parallel/multihost.py`; the steps' and `device_prefetch`'s `mesh=`).
 """
 
 from mot3d_tpu_torch.config import Config, default_config

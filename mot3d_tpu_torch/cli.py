@@ -365,6 +365,11 @@ def _infer_office(args, cfg: Config, device) -> None:
 
 def main(argv=None):
     args, overrides = _parse(argv if argv is not None else sys.argv[1:])
+    # The multi-process rendezvous through the MOT3D_* env vars (the
+    # reference's launch(num_machines, machine_rank, dist_url),
+    # `Detection/train_net.py:194-201`); a no-op for one process.
+    from mot3d_tpu_torch.parallel import multihost
+    multihost.maybe_initialize_distributed(device=args.device)
     from mot3d_tpu_torch.device import resolve_device
     device = resolve_device(args.device)
     cfg = apply_overrides(default_config(), overrides)

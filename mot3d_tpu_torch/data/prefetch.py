@@ -23,37 +23,12 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-from typing import Any, Callable, Iterator, NamedTuple
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
-import numpy as np
 import torch
 
-from mot3d_tpu_torch.device import resolve_device
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Map `fn` over the array leaves of nested NamedTuples, tuples, lists
-    and dicts (numpy arrays and tensors are leaves; other values stay)."""
-    if isinstance(tree, (np.ndarray, torch.Tensor)):
-        return fn(tree)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, x) for x in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, x) for x in tree)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return tree
-
-
-def _leaves(tree: Any) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
-def as_tensor(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x))
+from mot3d_tpu_torch.parallel.mesh import DataMesh, mesh_device, shard_batch
+from mot3d_tpu_torch.utils.tree import as_tensor, leaves, tree_map
 
 
 class _Raised(NamedTuple):
@@ -101,11 +76,16 @@ def background_iter(produce: Callable[[Callable[[Any], bool]], None],
         thread.join(timeout=30)
 
 
-def device_prefetch(batches: Iterator, device=None,
-                    buffer_size: int = 2) -> Iterator:
+def device_prefetch(batches: Iterator, device=None, buffer_size: int = 2,
+                    mesh: Optional[DataMesh] = None) -> Iterator:
     """Yield device-resident copies of `batches` (any tree of numpy arrays
-    or tensors), transferred ahead of use.  `device=None` means the GPU."""
-    dev = resolve_device(device)
+    or tensors), transferred ahead of use.  `device=None` means the GPU, or
+    the mesh's device.  With a `mesh` only this rank's rows of each batch
+    (`shard_batch`) are copied: the counterpart of the JAX package's
+    `sharding=` placement."""
+    dev = mesh_device(device, mesh)
+    if mesh is not None:
+        batches = (shard_batch(mesh, batch) for batch in batches)
     if dev.type != "cuda":
         for batch in batches:
             yield tree_map(lambda x: as_tensor(x).to(dev), batch)
@@ -133,6 +113,6 @@ def device_prefetch(batches: Iterator, device=None,
     for moved, event in background_iter(produce, buffer_size):
         consumer = torch.cuda.current_stream(dev)
         consumer.wait_event(event)
-        for t in _leaves(moved):
+        for t in leaves(moved):
             t.record_stream(consumer)
         yield moved

@@ -6,22 +6,22 @@ The sources under `mot3d_tpu_torch/csrc/` are compiled by `nvcc` for
 with `ctypes`.  One `nvcc -c` per source runs in parallel, then one link.
 The build is keyed on a hash of the sources and flags, so an unchanged
 checkout builds once; a file lock keeps concurrent processes from building
-at the same time.  Nothing here runs at import: the first CUDA launch
-builds, or a caller (such as `chip_smoke.py`) calls `build()` directly.
+at the same time (`utils/native.py:locked_build`).  Nothing here runs at
+import: the first CUDA launch builds, or a caller (such as
+`chip_smoke.py`) calls `build()` directly.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import fcntl
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
 import time
 from pathlib import Path
+
+from mot3d_tpu_torch.utils.native import locked_build, run_all, source_key
 
 SOURCES = ("knn_outlier.cu", "pose_extract.cu", "nms.cu")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -64,50 +64,25 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()
-
-
-def _run_all(cmds):
-    """Start every command at once; return their combined output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outputs = []
-    for cmd, proc in zip(cmds, procs):
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{out}")
-        outputs.append(out)
-    return "".join(outputs)
-
-
 def build() -> BuildResult:
     """Compile the kernels unless a library built from the same sources and
     flags is already there."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    key = _source_hash()
     t0 = time.perf_counter()
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if lib.exists() and stamp.exists() and stamp.read_text() == key:
-            return BuildResult(lib, time.perf_counter() - t0, True, ())
+
+    def make(tmp: Path) -> str:
         nvcc = _nvcc()
         objs = [BUILD_DIR / (Path(s).stem + ".o") for s in SOURCES]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
-                        for s, o in zip(SOURCES, objs)])
-        tmp = BUILD_DIR / (LIB_NAME + f".tmp{os.getpid()}")
-        log += _run_all([[nvcc, "-shared", "-gencode",
-                          "arch=compute_90a,code=sm_90a",
-                          *map(str, objs), "-o", str(tmp)]])
-        os.replace(tmp, lib)
-        stamp.write_text(key)
+        log = run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                       for s, o in zip(SOURCES, objs)])
+        return log + run_all([[nvcc, "-shared", "-gencode",
+                               "arch=compute_90a,code=sm_90a",
+                               *map(str, objs), "-o", str(tmp)]])
+
+    log = locked_build(lib, source_key(NVCC_FLAGS,
+                                       [CSRC / s for s in SOURCES]), make)
+    if log is None:
+        return BuildResult(lib, time.perf_counter() - t0, True, ())
     ptxas = tuple(line.strip() for line in log.splitlines()
                   if "ptxas" in line or "spill" in line)
     return BuildResult(lib, time.perf_counter() - t0, False, ptxas)

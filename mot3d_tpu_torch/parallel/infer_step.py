@@ -8,9 +8,12 @@ K2 extraction kernel once per sequence, each as one large launch; with
 `detection.fast_nms=False` the K3 exact-NMS kernel runs six times, once per
 RPN level over all frames and once for the class-wise test NMS),
 `build_graph`, and `TrackerModel`'s edge probabilities.  The B sequences of
-a batch run one after another.  Host-side trajectory assembly and MOTA
-(`tracking/tracker.py`, `tracking/mot_metrics.py`) consume the outputs
-after `outputs_to_host` has brought them over in one copy.
+a batch run one after another.  Sharded over a mesh (`mesh=`), each rank
+serves its own rows of the global batch the same way and the outputs are
+gathered on the leading axis: serving needs no other collective.
+Host-side trajectory assembly and MOTA (`tracking/tracker.py`,
+`tracking/mot_metrics.py`) consume the outputs after `outputs_to_host`
+has brought them over in one copy.
 
 Reference anchors: the eval path of `Detection/train_combined.py:128-433`
 and tracking inference (`Tracking/inference.py:19-21`).
@@ -24,11 +27,12 @@ import numpy as np
 import torch
 
 from mot3d_tpu_torch.config import Config
-from mot3d_tpu_torch.device import resolve_device
 from mot3d_tpu_torch.geometry.backproject import make_intrinsics
 from mot3d_tpu_torch.geometry.umeyama import make_draws
 from mot3d_tpu_torch.models.mask_rcnn import Detections, MaskRCNN
 from mot3d_tpu_torch.models.mpn import TrackerModel
+from mot3d_tpu_torch.parallel.mesh import (DataMesh, gather_batch,
+                                           mesh_device, shard_batch)
 from mot3d_tpu_torch.pose.pipeline import FrameDetections, postprocess_frames
 from mot3d_tpu_torch.tracking.graph_builder import GraphTemplate, build_graph
 
@@ -83,13 +87,14 @@ class SequenceInferStep:
 
     def __init__(self, det_model: MaskRCNN, trk_model: TrackerModel,
                  template: GraphTemplate, cfg: Config, use_gt_gate: bool,
-                 device: torch.device):
+                 device: torch.device, mesh: Optional[DataMesh] = None):
         self.det_model = det_model.to(device).eval()
         self.trk_model = trk_model.to(device).eval()
         self.template = template
         self.cfg = cfg
         self.use_gt_gate = use_gt_gate
         self.device = device
+        self.mesh = mesh
         cam = cfg.camera
         self.dtype = next(det_model.parameters()).dtype
         self.intrinsics = make_intrinsics(cam.fx, cam.fy, cam.cx, cam.cy,
@@ -138,37 +143,52 @@ class SequenceInferStep:
                                 graph.edge_mask)
         return torch.sigmoid(logits[-1])[:self.e_fwd], graph.obj_ids
 
+    def make_draws(self, batch: SequenceBatch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        """The batch's raw RANSAC draws (B, T, I, iters, S), sequence by
+        sequence from `generator`.  Over a mesh every rank draws those of
+        the global batch, in batch order, and keeps its own rows, so that
+        the sharded run consumes the draws of the unsharded one."""
+        p = self.cfg.pose
+        b, t = len(batch.images), len(batch.images[0])
+        shape = (t, self.cfg.detection.detections_per_image,
+                 p.ransac_iters, p.ransac_sample_size)
+        size = 1 if self.mesh is None else self.mesh.size
+        draws = torch.stack([make_draws(shape, generator, self.device)
+                             for _ in range(b * size)])
+        return draws if self.mesh is None else shard_batch(self.mesh, draws)
+
     def __call__(self, batch: SequenceBatch,
                  draws: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> SequenceOutputs:
         """draws (B, T, I, iters, S) raw RANSAC draws, or None to make them
-        with `generator` on the device."""
+        with `generator` on the device (`make_draws`).  Over a mesh `batch`
+        and `draws` are this rank's rows and the outputs every rank's."""
+        if draws is None:
+            draws = self.make_draws(batch, generator)
         outs = []
-        p = self.cfg.pose
         for b in range(len(batch.images)):
             seq = SequenceBatch(*(x[b] for x in batch))
             dets = self.detect(seq.images)
-            if draws is None:
-                d = make_draws(tuple(dets.scores.shape) + (
-                    p.ransac_iters, p.ransac_sample_size), generator,
-                    self.device)
-            else:
-                d = draws[b]
-            frames = self.pose(dets, seq, d)
+            frames = self.pose(dets, seq, draws[b])
             edge_probs, obj_ids = self.track(frames, seq)
             outs.append(SequenceOutputs(
                 edge_probs=edge_probs, obj_ids=obj_ids, valid=frames.valid,
                 translations=frames.translations, classes=frames.classes,
                 scores=frames.objectness))
-        return SequenceOutputs(*(torch.stack(x) for x in zip(*outs)))
+        out = SequenceOutputs(*(torch.stack(x) for x in zip(*outs)))
+        return out if self.mesh is None else gather_batch(self.mesh, out)
 
 
 def make_sequence_infer_step(det_model: MaskRCNN, trk_model: TrackerModel,
                              template: GraphTemplate, cfg: Config,
-                             use_gt_gate: bool = True,
-                             device=None) -> SequenceInferStep:
+                             use_gt_gate: bool = True, device=None,
+                             mesh: Optional[DataMesh] = None
+                             ) -> SequenceInferStep:
     """Build the batched inference step.  `device=None` means the GPU (and
-    raises without one); the models are moved there."""
+    raises without one), or the mesh's device; the models are moved
+    there."""
     return SequenceInferStep(det_model, trk_model, template, cfg,
-                             use_gt_gate, resolve_device(device))
+                             use_gt_gate, mesh_device(device, mesh), mesh)

@@ -1,4 +1,4 @@
-"""Training steps on one GPU (counterpart of
+"""Training steps, on one GPU or data-parallel over a mesh (counterpart of
 `mot3d_tpu/parallel/train_step.py`).
 
 Two steps mirror the reference's two training regimes:
@@ -26,6 +26,20 @@ the train states carry the models, the optimizers and their LR schedulers
 number of a window (both detector samplers' uniforms and the RANSAC draws)
 is an input, `WindowDraws`, made from an explicit `torch.Generator` unless
 the caller passes them.
+
+Data parallelism (`mesh=`, a `parallel/mesh.py:DataMesh`): each rank is
+handed its own rows of the global batch (`shard_batch`), runs the step on
+them, then every parameter gets a gradient (a missing one is zero),
+`all_mean_grads` averages each model's gradients over the ranks in one
+all_reduce, every rank makes the same update, and `all_mean` averages the
+metrics.  The losses are means over windows or sequences, so with equal
+shards this is the step on the global batch.  Draws a step makes itself
+are the global batch's, from the generator in batch order, and each rank
+keeps its rows: every rank's generator must be seeded alike.  The models
+must start equal on every rank (`mesh.replicate`).  The reductions are
+explicit rather than `DistributedDataParallel`'s hooks, which do not
+follow `backward(inputs=...)` with `retain_graph` or a detector called
+through both `train_losses` and an eval-mode `predict`.
 """
 
 from __future__ import annotations
@@ -37,13 +51,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from mot3d_tpu_torch.config import Config
-from mot3d_tpu_torch.device import resolve_device
 from mot3d_tpu_torch.geometry.backproject import make_intrinsics
 from mot3d_tpu_torch.geometry.umeyama import make_draws
 from mot3d_tpu_torch.models.mask_rcnn import (DetectionDraws, GroundTruth,
                                               MaskRCNN)
 from mot3d_tpu_torch.models.mpn import TrackerModel, tracker_loss
 from mot3d_tpu_torch.ops.cuda.pose_extract import NO_GRADIENT
+from mot3d_tpu_torch.parallel.mesh import (DataMesh, all_mean,
+                                           all_mean_grads, mesh_device,
+                                           shard_batch)
 from mot3d_tpu_torch.pose.pipeline import _check_extraction, \
     postprocess_frames
 from mot3d_tpu_torch.tracking.graph_builder import GraphTemplate, build_graph
@@ -71,6 +87,17 @@ def update(model, optimizer, scheduler) -> None:
     _zero_missing_grads(model.parameters())
     optimizer.step()
     scheduler.step()
+
+
+def _reduce_grads(mesh: Optional[DataMesh], *models) -> None:
+    """Average every model's gradients over the mesh, a missing gradient
+    counting as zero on every rank, so that all send the same tensors."""
+    if mesh is None:
+        return
+    for model in models:
+        params = list(model.parameters())
+        _zero_missing_grads(params)
+        all_mean_grads(mesh, params)
 
 
 @dataclasses.dataclass
@@ -117,12 +144,14 @@ class TrackingBatch(NamedTuple):
 
 
 def make_tracking_train_step(model: TrackerModel, template: GraphTemplate,
-                             cfg: Config, device=None):
+                             cfg: Config, device=None,
+                             mesh: Optional[DataMesh] = None):
     """(state, batch) -> (state, metrics): the mean tracking loss of the
     batch's sequences, one backward, one update.  `device=None` means the
-    GPU."""
+    GPU.  With a `mesh` the batch is this rank's rows of the global batch
+    and the step is data-parallel (module docstring)."""
     _check_trainable(cfg)
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     model.to(dev)
     dtype = next(model.parameters()).dtype
 
@@ -147,9 +176,11 @@ def make_tracking_train_step(model: TrackerModel, template: GraphTemplate,
             seq_loss(TrackingBatch(*(x[b] for x in batch)))
             for b in range(batch.det_valid.shape[0])]).mean()
         loss.backward()
+        _reduce_grads(mesh, state.model)
         update(state.model, state.optimizer, state.scheduler)
         state.step += 1
-        return state, {"tracking_loss": loss.detach()}
+        metrics = {"tracking_loss": loss.detach()}
+        return state, metrics if mesh is None else all_mean(mesh, metrics)
 
     return step
 
@@ -256,7 +287,8 @@ def _widen(batch: CombinedBatch, dtype, device) -> CombinedBatch:
 def make_combined_train_step(det_model: MaskRCNN, trk_model: TrackerModel,
                              template: GraphTemplate, cfg: Config,
                              joint_grad: bool = True, remat: bool = True,
-                             accum_windows: bool = False, device=None):
+                             accum_windows: bool = False, device=None,
+                             mesh: Optional[DataMesh] = None):
     """(state, batch, draws=None, generator=None) -> (state, metrics).
 
     joint_grad=True differentiates ONE scalar (detection total + tracking
@@ -276,14 +308,16 @@ def make_combined_train_step(det_model: MaskRCNN, trk_model: TrackerModel,
     tracking loss, loss dict)), (detector grads, tracker grads)), the
     grads as name -> tensor dicts; its `window_forward(window, draws)` is
     one window's (loss dict, tracking loss) with autograd, for gradients of
-    a single term.  `device=None` means the GPU."""
+    a single term.  `device=None` means the GPU.  With a `mesh` the batch
+    (and `draws`, when given) are this rank's rows of the global batch and
+    the step is data-parallel (module docstring)."""
     if accum_windows and not joint_grad:
         raise ValueError(
             "accum_windows=True requires joint_grad=True: gradient "
             "accumulation is only implemented for the joint single-backward "
             "step")
     _check_trainable(cfg)
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
     det_model.to(dev)
     trk_model.to(dev)
     dtype = next(det_model.parameters()).dtype
@@ -340,7 +374,10 @@ def make_combined_train_step(det_model: MaskRCNN, trk_model: TrackerModel,
         batch = _widen(batch, dtype, dev)
         b, t = batch.images.shape[:2]
         if draws is None:
-            draws = make_window_draws(det_model, cfg, b, t, generator)
+            size = 1 if mesh is None else mesh.size
+            draws = make_window_draws(det_model, cfg, b * size, t, generator)
+            if mesh is not None:
+                draws = shard_batch(mesh, draws)
         draws = _draws_to(draws, dev)
         windows = [(CombinedBatch(*(x[i] for x in batch)),
                     _window_draws(draws, i)) for i in range(b)]
@@ -355,10 +392,11 @@ def make_combined_train_step(det_model: MaskRCNN, trk_model: TrackerModel,
                    for k in auxes[0][2]}
         metrics["tracking_loss"] = trk_total
         metrics["detection_total"] = det_total
+        _reduce_grads(mesh, state.det_model, state.trk_model)
         update(state.det_model, state.det_opt, state.det_sched)
         update(state.trk_model, state.trk_opt, state.trk_sched)
         state.step += 1
-        return state, metrics
+        return state, metrics if mesh is None else all_mean(mesh, metrics)
 
     def joint_step(state: CombinedTrainState, batch: CombinedBatch,
                    draws: Optional[WindowDraws] = None,

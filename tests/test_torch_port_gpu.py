@@ -437,3 +437,129 @@ def test_bf16_predict_on_the_card():
     for name in ("boxes", "scores", "masks", "voxels", "nocs"):
         t = getattr(dets, name)
         assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+
+
+def _rel_err(got: dict, want: dict) -> float:
+    """The largest per-tensor |got - want|_max / |want|_max."""
+    return max(float((got[n].cpu() - w.detach().cpu()).abs().max())
+               / max(float(w.detach().abs().max()), 1e-30)
+               for n, w in want.items())
+
+
+def test_two_ranks_on_the_card_match_one_process(tmp_path):
+    """Two ranks of `_torch_parallel_worker.py` on the card (NCCL with a
+    card each, gloo when they share one) against this process's steps on
+    the global batches, float32 under deterministic algorithms: tracking
+    and combined gradients (all three modes) within 1e-5 of each tensor's
+    largest value (only the order of the sums differs), parameters
+    bit-equal across the ranks, sharded serving equal to the unsharded run
+    (identities, validity and classes exactly, the rest within 1e-4)."""
+    import copy
+
+    from mot3d_tpu_torch.data.synthetic import synthetic_sequence
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.models.mpn import TrackerModel
+    from mot3d_tpu_torch.parallel import dryrun
+    from mot3d_tpu_torch.parallel import train_step as ts
+    from mot3d_tpu_torch.parallel.infer_step import (SequenceBatch,
+                                                     make_sequence_infer_step)
+    from mot3d_tpu_torch.tracking.graph_builder import make_template
+    from mot3d_tpu_torch.train.combined_trainer import (detection_optimizer,
+                                                        tracking_optimizer)
+    from mot3d_tpu_torch.train.tracking_trainer import sequences_to_batch
+    from torch_port_helpers import (COMBINED_MODES, finish_ranks,
+                                    serving_inputs, start_ranks)
+
+    dev = _cuda()
+    cfg = dryrun.open_gates(dryrun.tiny_config())
+    trk_c = cfg.tracking
+    tmpl_t = make_template(trk_c.seq_len, trk_c.max_instances_per_frame,
+                           trk_c.max_frame_dist)
+    torch.manual_seed(2)
+    tracker = TrackerModel(cfg.graph, device="cpu")
+    tbatch = sequences_to_batch([synthetic_sequence(
+        trk_c, seed=i, num_objects=3, noise=0.01)._asdict()
+        for i in range(4)])
+    tracking = dict(cfg=cfg, template=tmpl_t, model=tracker,
+                    batch=tbatch._asdict())
+    torch.manual_seed(0)
+    det = MaskRCNN(cfg.detection, device="cpu")
+    trk = TrackerModel(cfg.graph, device="cpu")
+    with torch.no_grad():
+        det.mask_head.Conv_4.bias.fill_(3.0)
+    tmpl_c = make_template(trk_c.seq_len, cfg.detection.detections_per_image,
+                           trk_c.max_frame_dist)
+    combined = dict(cfg=cfg, det=det, trk=trk, template=tmpl_c,
+                    batch=dryrun.dryrun_batch(cfg, 2), modes=COMBINED_MODES,
+                    seed=11)
+    serving = serving_inputs()
+    procs = start_ranks(tmp_path, {"tracking": tracking,
+                                   "combined": combined,
+                                   "serving": serving}, device="cuda")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = copy.deepcopy(tracker).to(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=1.0)
+        state = ts.TrackingTrainState(model, opt, torch.optim.lr_scheduler.
+                                      LambdaLR(opt, lambda n: 1.0))
+        _, m = ts.make_tracking_train_step(model, tmpl_t, cfg, device=dev)(
+            state, tbatch)
+        ref_tracking = (float(m["tracking_loss"]),
+                        dict(model.named_parameters()))
+        ref_combined = {}
+        for mode, kw in COMBINED_MODES.items():
+            d, t = copy.deepcopy(det).to(dev), copy.deepcopy(trk).to(dev)
+            step = ts.make_combined_train_step(d, t, tmpl_c, cfg,
+                                               remat=False, device=dev, **kw)
+            step(ts.CombinedTrainState(d, *detection_optimizer(cfg, d), t,
+                                       *tracking_optimizer(cfg, t)),
+                 ts.CombinedBatch(**combined["batch"]),
+                 generator=torch.Generator(dev).manual_seed(11))
+            ref_combined[mode] = [{n: p.grad for n, p in x.named_parameters()}
+                                  for x in (d, t)]
+        serve = make_sequence_infer_step(
+            copy.deepcopy(serving["det"]), copy.deepcopy(serving["trk"]),
+            serving["template"], serving["cfg"], device=dev)
+        ref_serving = serve(SequenceBatch(**serving["batch"]),
+                            generator=torch.Generator(dev).manual_seed(7))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        got = finish_ranks(procs, tmp_path)
+    for out in got:
+        assert out["initialised"] and out["size"] == 2
+        assert out["backend"] == ("nccl" if torch.cuda.device_count() >= 2
+                                  else "gloo")
+        assert abs(float(out["tracking"]["loss"]) - ref_tracking[0]) <= \
+            1e-5 * abs(ref_tracking[0])
+        assert _rel_err(out["tracking"]["params"], ref_tracking[1]) <= 1e-5
+        for mode in COMBINED_MODES:
+            for m in (0, 1):
+                assert _rel_err(out["combined"][mode]["grads"][m],
+                                ref_combined[mode][m]) <= 1e-5, mode
+        for name in ("obj_ids", "valid", "classes"):
+            assert torch.equal(out["serving"][name],
+                               getattr(ref_serving, name).cpu()), name
+        for name in ("translations", "scores", "edge_probs"):
+            assert float((out["serving"][name] - getattr(
+                ref_serving, name).cpu()).abs().max()) <= 1e-4, name
+    for a, b in zip(got[0]["tracking"]["params"].values(),
+                    got[1]["tracking"]["params"].values()):
+        assert torch.equal(a, b)
+    for mode in COMBINED_MODES:
+        for m in (0, 1):
+            for name, p in got[0]["combined"][mode]["params"][m].items():
+                assert torch.equal(
+                    p, got[1]["combined"][mode]["params"][m][name]), name
+
+
+def test_world_one_nccl_dry_run():
+    """The package's dry run on one rank of CUDA: a world-size-1 NCCL
+    group, whose all_reduce runs through NCCL even on one card."""
+    from mot3d_tpu_torch.parallel import dryrun
+
+    _cuda()
+    out = dryrun.dryrun_multichip(1, device="cuda")
+    assert out["backend"] == "nccl" and out["device"] == "cuda:0"
+    assert out["combined"]["tracking_loss"] > 0
+    assert out["tracking"]["tracking_loss"] > 0

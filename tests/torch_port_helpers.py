@@ -3,6 +3,10 @@ package config into the port's config, and rebuild the JAX package's RANSAC
 draws so both frameworks consume the same random numbers."""
 
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -234,3 +238,72 @@ def knn_cases():
     degenerate[2, cols[3:]] = False                  # 3 valid candidates < k
     add("degenerate_detections", _cloud(rng, 4, 256), degenerate, cols, 5)
     return cases
+
+
+# ------------------------------------------- data-parallel worker ranks
+
+PARALLEL_WORKER = Path(__file__).with_name("_torch_parallel_worker.py")
+# The combined step's three modes, as make_combined_train_step arguments.
+COMBINED_MODES = {"joint": {}, "accum_windows": {"accum_windows": True},
+                  "two_backward": {"joint_grad": False}}
+
+
+def start_ranks(work: Path, inputs: dict, nproc: int = 2,
+                device: str = "cpu"):
+    """Write `inputs` to work/inputs.pt and start `nproc` ranks of
+    `_torch_parallel_worker.py` on `device`; returns their processes."""
+    torch.save(inputs, work / "inputs.pt")
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    from mot3d_tpu_torch.parallel.dryrun import free_port
+    port = str(free_port())
+    return [subprocess.Popen(
+        [sys.executable, str(PARALLEL_WORKER), str(r), str(nproc), port,
+         str(work), device], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(nproc)]
+
+
+def finish_ranks(procs, work: Path, timeout: float = 300) -> list:
+    """Wait for the ranks (killing them on the way out) and load each
+    rank's results; raise with their output if one failed."""
+    try:
+        logs = [p.communicate(timeout=timeout)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("worker ranks failed:\n"
+                             + "\n---\n".join(logs)[-4000:])
+    return [torch.load(work / f"rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def serving_inputs(seed: int = 1) -> dict:
+    """The sharded-serving inputs of the worker ranks: the tiny detector
+    and tracker from torch's initialisation (the mask predictor raised so
+    points reach the pose fit), every gate open, 4 sequences of the
+    dry run's random frames."""
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.models.mpn import TrackerModel
+    from mot3d_tpu_torch.parallel import dryrun
+    from mot3d_tpu_torch.tracking.graph_builder import make_template
+
+    cfg = dryrun.open_gates(dryrun.tiny_config())
+    torch.manual_seed(seed)
+    det = MaskRCNN(cfg.detection, device="cpu")
+    trk = TrackerModel(cfg.graph, device="cpu")
+    with torch.no_grad():
+        det.mask_head.Conv_4.bias.fill_(3.0)
+    w = dryrun.dryrun_batch(cfg, 4, seed=5)
+    batch = dict(images=w["images"], depth=w["depth"],
+                 campose=w["campose"], gt_boxes2d=w["gt_boxes2d"],
+                 gt_valid2d=w["gt_valid"], gt_boxes3d=w["gt_boxes3d"],
+                 gt_boxes3d_cropped=w["gt_boxes3d"], gt_ids=w["gt_ids"],
+                 gt_valid=w["gt_valid"])
+    template = make_template(cfg.tracking.seq_len,
+                             cfg.detection.detections_per_image,
+                             cfg.tracking.max_frame_dist)
+    return dict(cfg=cfg, det=det, trk=trk, template=template, batch=batch,
+                seed=7)

@@ -14,6 +14,7 @@ Phases, one JSON line each; any failure exits non-zero:
      2048, exact ties, detections with no valid points or candidates);
   4. K2 (pose point extraction) against its plain version at the main
      path's shapes, with call and device times, and at odd P with G = 33;
+     then K3 (exact NMS, phase 8) right after it;
   5. the main path at full width: default Config() (R50-FPN with GN,
      256 x 320 input, 25-frame sequences, 16 detections per frame), random
      weights from --seed, one warm-up and three timed synthetic sequences
@@ -23,9 +24,12 @@ Phases, one JSON line each; any failure exits non-zero:
      detections;
   7. one sequence of the main path under torch.profiler (device time by
      kernel, device idle share);
-  8. K3 (exact NMS) against its plain version: adversarial cases (ties,
-     chains, invalid rows, odd K) and the evaluation path's shapes, with
-     times;
+  8. K3 (exact NMS) against its plain version: adversarial cases (ties
+     and signed zeros, chains inside and across 64-rank words, invalid
+     rows, odd K, a class-wise `movedim` view) and, on unsorted scores, the
+     evaluation path's six calls with call, device and plain times and the
+     cluster size, the training path's largest call and K = 4096 (runs
+     after phase 4);
   9. the reference-parity evaluation path at full width: the detector in
      import mode (`import_config`: affine norms, stride on the 1x1, torch
      voxel reshape, anchor offset 0) with exact NMS (K3 on the path),
@@ -110,8 +114,8 @@ in the workflow, on the reference-weights path, the office path, with
 final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
-With --kernels-only it stops after phase 4: copied into another checkout
-and run from there, it times that checkout's K1 and K2 the same way.
+With --kernels-only it stops after K3: copied into another checkout and
+run from there, it times that checkout's K1, K2 and K3 the same way.
 """
 
 from __future__ import annotations
@@ -411,9 +415,26 @@ def _nms_boxes(rng, shape, size=(8.0, 200.0), extent=(320.0, 256.0)):
                    lim).astype(np.float32)
 
 
+def _disjoint_boxes(k):
+    """k 20 x 20 boxes on a 30-pixel grid from y = 300: no two overlap."""
+    i = np.arange(k)
+    xy = np.stack([(i % 16) * 30.0, 300.0 + (i // 16) * 30.0], -1)
+    return np.concatenate([xy, xy + 20.0], -1).astype(np.float32)
+
+
+def _chain_into(boxes, ranks):
+    """Boxes at `ranks` slid 4 apart, 10 wide: each overlaps the next one
+    only (IoU 3/7), so greedy NMS at 0.4 keeps every other one."""
+    boxes[ranks] = (np.float32([0, 0, 10, 10])
+                    + np.arange(len(ranks), dtype=np.float32)[:, None]
+                    * np.float32([4, 0, 4, 0]))
+    return boxes
+
+
 def _nms_cases(rng):
     """(name, boxes (..., K, 4), scores, valid, threshold): inputs that
-    break a wrong exact NMS.  Unsorted; ties, chains, invalid rows, odd K."""
+    break a wrong exact NMS.  Unsorted; ties (signed zeros too), chains
+    inside and across 64-rank words, invalid rows, odd K, strided views."""
     def case(name, boxes, scores=None, valid=None, thresh=0.5):
         shape = boxes.shape[:-1]
         if scores is None:
@@ -431,12 +452,25 @@ def _nms_cases(rng):
     yield case("tied_scores", _nms_boxes(rng, (k,)),
                np.round(rng.uniform(size=k), 1))
     yield case("all_scores_equal", _nms_boxes(rng, (k,)), np.zeros(k))
+    # Identical pairs scored (-0.0, +0.0) and (+0.0, -0.0): equal scores,
+    # so the lower index is kept.
+    zeros = np.zeros(48, np.float32)
+    zeros[0::4], zeros[3::4] = -0.0, -0.0
+    yield case("signed_zero_ties", np.repeat(_disjoint_boxes(24), 2, 0),
+               zeros)
+    yield case("chain_64_in_one_word",
+               _chain_into(_disjoint_boxes(96), np.arange(64)),
+               np.linspace(1, 0, 96), thresh=0.4)
+    yield case("chain_across_words",
+               _chain_into(_disjoint_boxes(k), np.arange(58, 73)),
+               np.linspace(1, 0, k), thresh=0.4)
     some = rng.uniform(size=(3, 200)) < 0.7
     yield case("invalid_rows", _nms_boxes(rng, (3, 200)), valid=some,
                thresh=0.4)
     yield case("all_invalid", _nms_boxes(rng, (2, 70)),
                valid=np.zeros((2, 70), bool))
     yield case("k_equals_1", _nms_boxes(rng, (4, 1)))
+    yield case("k_64", _nms_boxes(rng, (2, 64)), thresh=0.7)
     yield case("k_65", _nms_boxes(rng, (2, 65)), thresh=0.7)
     # Integer corners: many IoUs are exactly equal to each other and sit on
     # or next to simple fractions such as 2/5 and 7/10.
@@ -446,15 +480,29 @@ def _nms_cases(rng):
         yield case(f"integer_corners_{thr}", grid, thresh=thr,
                    valid=rng.uniform(size=(4, 300)) < 0.9)
     yield case("batch_dims", _nms_boxes(rng, (2, 3, 129)), thresh=0.7)
-    # K above what the mask needs of shared memory: the global scratch.
-    yield case("k_1500_global_scratch", _nms_boxes(rng, (2, 1500)),
-               thresh=0.7)
+    # Class-wise NMS passes `movedim` views of its (B, P, C) layout; astype
+    # keeps the permuted strides, and so does .to(device).
+    base = _nms_boxes(rng, (2, 175, 3), (8.0, 120.0))
+    yield case("classwise_movedim", np.moveaxis(base, 2, 1),
+               np.moveaxis(np.round(rng.uniform(size=(2, 175, 3)), 2), 2, 1),
+               np.moveaxis(rng.uniform(size=(2, 175, 3)) < 0.8, 2, 1), 0.4)
+    yield case("k_1500", _nms_boxes(rng, (2, 1500)), thresh=0.7)
+
+
+def _nms_problems(rng, q, k, size, dev):
+    """q problems of k unsorted boxes like RPN proposals, 90% valid."""
+    boxes = torch.from_numpy(_nms_boxes(rng, (q, k), size)).to(dev)
+    scores = torch.from_numpy(
+        rng.uniform(size=(q, k)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=(q, k)) < 0.9).to(dev)
+    return boxes, scores, valid
 
 
 def phase_k3(rng, dev, cfg):
     """K3 against its plain version: the adversarial cases through
-    `nms_mask` (sort, kernel, unsort) against the sort-free fixpoint, then
-    score-sorted problems at the shapes of the evaluation path."""
+    `nms_mask`, then unsorted problems at the shapes of the evaluation
+    path's six calls (timed), the training path's largest call and the
+    largest K, each against the sort-free fixpoint `nms_mask_plain`."""
     from mot3d_tpu_torch.models.rpn import level_slices
     from mot3d_tpu_torch.ops import nms as nms_ops
     from mot3d_tpu_torch.ops.cuda import nms as k3
@@ -472,63 +520,71 @@ def phase_k3(rng, dev, cfg):
         cases += 1
 
     det, t = cfg.detection, cfg.tracking.seq_len
-    rpn_k = [min(det.rpn_pre_nms_topk_test, s1 - s0) for s0, s1 in
-             level_slices(det.pad_height, det.pad_width,
-                          len(det.anchor_ratios))]
-    shapes = [(t, k, det.rpn_nms_thresh) for k in rpn_k]
+    slices = level_slices(det.pad_height, det.pad_width,
+                          len(det.anchor_ratios))
+    shapes = [(t, min(det.rpn_pre_nms_topk_test, s1 - s0), det.rpn_nms_thresh)
+              for s0, s1 in slices]
     shapes.append((t * det.num_classes, det.rpn_post_nms_topk_test,
                    det.nms_thresh_test))
-    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, with_sort_ms=0.0,
-                 ops=0.0, nbytes=0.0, kept=0)
+    train_k = max(min(det.rpn_pre_nms_topk_train, s1 - s0)
+                  for s0, s1 in slices)
+    checked = [(2, train_k, det.rpn_nms_thresh), (1, k3.MAX_K, 0.7)]
+    total = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, ops=0.0, nbytes=0.0)
     per_shape = []
-    for q, k, thr in shapes:
+    for n, (q, k, thr) in enumerate(shapes + checked):
         size = (8.0, 200.0) if thr == det.rpn_nms_thresh else (8.0, 120.0)
-        boxes = torch.from_numpy(_nms_boxes(rng, (q, k), size)).to(dev)
-        scores = torch.from_numpy(
-            np.sort(rng.uniform(size=(q, k)).astype(np.float32))[:, ::-1]
-            .copy()).to(dev)
-        valid = torch.from_numpy(rng.uniform(size=(q, k)) < 0.9).to(dev)
-        got = k3.nms_sorted(boxes, valid, thr)
-        want = k3.nms_sorted_plain(boxes, valid, thr)
+        boxes, scores, valid = _nms_problems(rng, q, k, size, dev)
+
+        def call():
+            return k3.exact_nms_mask(boxes, scores, valid, thr)
+
+        def plain():
+            return nms_ops.nms_mask_plain(boxes, scores, valid, thr)
+
+        got, want = call(), plain()
         sync()
         mism = int((got != want).sum())
         check(mism == 0, f"K3 {q} x {k}: {mism} kept-mask mismatches")
-        ms = cuda_time_ms(lambda: k3.nms_sorted(boxes, valid, thr), 20)
-        plain_ms = cuda_time_ms(
-            lambda: k3.nms_sorted_plain(boxes, valid, thr), 2, 1)
-        sort_ms = cuda_time_ms(
-            lambda: nms_ops.nms_mask(boxes, scores, valid, thr), 20)
+        if n >= len(shapes):
+            per_shape.append({"problems": q, "k": k, "thresh": thr,
+                              "checked_only": True, "kept": int(got.sum())})
+            continue
+        ms = cuda_time_ms(call, 20)
+        plain_ms = cuda_time_ms(plain, 2, 1)
+        # Per-launch device time of each kernel of the call (a two-kernel
+        # build shows both); the profiler now and then returns no events.
+        for _ in range(3):
+            per_kernel = kernel_device_ms(call, "nms_", 5)
+            if per_kernel:
+                break
+        check(bool(per_kernel), f"K3 {q} x {k}: no device time profiled")
         # Work this data needs: every pair of valid boxes of a problem once,
-        # ~14 fp32 operations per pair; bytes: 16 + 1 in and 1 out per box.
+        # ~14 fp32 operations per pair; bytes: 16 + 4 + 1 in and 1 out per
+        # box.
         nv = valid.sum(1).double()
         ops = 14.0 * float((nv * (nv - 1) / 2).sum())
-        nbytes = 18.0 * q * k
-        # The call's two kernels apart, from the profiler's device times.
-        per_kernel = kernel_device_ms(
-            lambda: k3.nms_sorted(boxes, valid, thr), "nms_", 5)
-        split = {name: t for key, t in per_kernel.items()
-                 for name in ("nms_pairs_kernel", "nms_scan_kernel")
-                 if name in key}
-        per_shape.append({"problems": q, "k": k, "thresh": thr, "ms": ms,
-                          "kernel_ms": split,
-                          "plain_ms": plain_ms, "with_sort_ms": sort_ms,
-                          "bound_ms": bound_ms(ops, nbytes)[0],
-                          "kept": int(got.sum())})
-        for key, val in (("ms", ms), ("device_ms", sum(split.values())),
-                         ("plain_ms", plain_ms),
-                         ("with_sort_ms", sort_ms), ("ops", ops),
-                         ("nbytes", nbytes), ("kept", int(got.sum()))):
+        nbytes = 22.0 * q * k
+        device_ms = sum(per_kernel.values())
+        per_shape.append({
+            "problems": q, "k": k, "thresh": thr, "ms": ms,
+            "device_ms": device_ms, "kernel_ms": per_kernel,
+            # None in a checkout whose K3 launches no clusters (a copy of
+            # an older commit timed with this script, --kernels-only).
+            "cluster": getattr(k3, "last_cluster", None),
+            "plain_ms": plain_ms, "bound_ms": bound_ms(ops, nbytes)[0],
+            "kept": int(got.sum())})
+        for key, val in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("ops", ops),
+                         ("nbytes", nbytes)):
             total[key] += val
     bms, by = bound_ms(total["ops"], total["nbytes"])
     res = dict(max_abs_err=0.0, kept_mismatches=0, ms=total["ms"],
                device_ms=total["device_ms"], plain_ms=total["plain_ms"],
-               with_sort_ms=total["with_sort_ms"],
                bound_ms=bms, bound_by=by)
     emit({"phase": "k3", "adversarial_cases": cases, **res,
-          "what": "one sequence's 6 launches (5 RPN levels, 1 class-wise); "
-                  "bound counts valid pairs x 14 operations against 18 "
-                  "bytes per box; the serial rank chain of each problem, "
-                  "not the pair work, is the likely floor",
+          "what": "one sequence's 6 calls (5 RPN levels, 1 class-wise) on "
+                  "unsorted scores, sort and unsort included; bound counts "
+                  "valid pairs x 14 operations against 22 bytes per box",
           "per_launch": per_shape})
     return res
 
@@ -2790,8 +2846,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="run the device, build, K1 and K2 phases and stop "
-                         "(no status line): to time one checkout's kernels "
+                    help="run the device, build, K1, K2 and K3 phases and "
+                         "stop (no status line): to time one checkout's "
+                         "kernels "
                          "beside another's in one session")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2809,13 +2866,13 @@ def main() -> int:
     built = phase_build()
     k1_res = phase_k1(rng, dev)
     k2_res = phase_k2(rng, dev, cfg)
+    k3_res = phase_k3(rng, dev, cfg)
     if args.kernels_only:
         return 0
     det, trk, template, seqs, draws, main_launches, main_step = \
         phase_main(args.seed, cfg, dev)
     pallas_launches = phase_pallas(cfg, det, trk, template, seqs, draws, dev)
     phase_profile(cfg, det, trk, template, seqs, draws, dev)
-    k3_res = phase_k3(rng, dev, cfg)
     eval_launches, eval_step = phase_eval(args.seed, cfg, trk, template, seqs,
                                           draws, dev)
     phase_turns({"main_path": main_step, "eval_path": eval_step}, seqs, draws,

@@ -98,10 +98,10 @@ def library() -> ctypes.CDLL:
     lib.mot3d_pose_extract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                        i, f, p]
     lib.mot3d_pose_extract.restype = i
-    lib.mot3d_nms_scratch_words.argtypes = [i]
-    lib.mot3d_nms_scratch_words.restype = ctypes.c_longlong
-    lib.mot3d_nms_sorted.argtypes = [p, p, p, p, i, i, f, p]
-    lib.mot3d_nms_sorted.restype = i
+    lib.mot3d_nms_mask.argtypes = [p, p, p, p,
+                                   ctypes.POINTER(ctypes.c_longlong), i, f,
+                                   p, ctypes.POINTER(ctypes.c_int)]
+    lib.mot3d_nms_mask.restype = i
     return lib
 
 

@@ -13,8 +13,9 @@ all classes) of a batch are one pass.
   iterated from ``keep = valid`` until it stops changing (at most K + 1
   steps, in practice the longest suppression chain).  That iteration
   (`nms_mask_plain`) serves CPU tensors; a CUDA tensor goes through the K3
-  kernel (`ops/cuda/nms.py:exact_nms_mask`: sort, scan, unsort), which keeps
-  the same set.
+  kernel (`ops/cuda/nms.py:exact_nms_mask`: one launch that sorts, builds
+  the suppression words and scans them, strided views taken as they are),
+  which keeps the same set.
 """
 
 from __future__ import annotations

@@ -101,8 +101,9 @@ def test_pose_extract_kernel_matches_plain(p, grid):
 
 
 def test_nms_kernel_matches_plain_on_every_case():
-    """`nms_mask(exact=True)` on the card (sort, K3, unsort) against the
-    sort-free fixpoint on the card, on the CPU test's cases."""
+    """`nms_mask(exact=True)` on the card (K3: one launch, sort inside)
+    against the sort-free fixpoint on the card, on the CPU test's cases
+    (the class-wise case as a `movedim` view)."""
     from mot3d_tpu_torch.ops import nms as nms_ops
     from mot3d_tpu_torch.ops.cuda import nms as k3
     from torch_port_helpers import nms_cases
@@ -117,11 +118,14 @@ def test_nms_kernel_matches_plain_on_every_case():
         assert torch.equal(got, want), name
 
 
-@pytest.mark.parametrize("q,k,thresh", [(25, 1000, 0.7), (175, 500, 0.4),
-                                        (3, 1500, 0.7)])
+@pytest.mark.parametrize("q,k,thresh", [(25, 1000, 0.7), (25, 960, 0.7),
+                                        (25, 240, 0.7), (25, 60, 0.7),
+                                        (175, 500, 0.4), (2, 2000, 0.7),
+                                        (1, 4096, 0.7)])
 def test_nms_sorted_kernel_matches_plain_at_path_shapes(q, k, thresh):
-    """Score-sorted problems at the evaluation path's shapes, and one whose
-    mask needs the global scratch buffer."""
+    """Unsorted problems at the evaluation path's shapes, the training
+    path's (2, 2000) and the largest K, whose mask fills a cluster of 8."""
+    from mot3d_tpu_torch.ops import nms as nms_ops
     from mot3d_tpu_torch.ops.cuda import nms as k3
 
     dev = _cuda()
@@ -131,11 +135,15 @@ def test_nms_sorted_kernel_matches_plain_at_path_shapes(q, k, thresh):
     boxes = np.clip(np.concatenate([ctr - wh / 2, ctr + wh / 2], -1), 0,
                     [320, 256, 320, 256]).astype(np.float32)
     boxes = torch.from_numpy(boxes).to(dev)
+    scores = torch.from_numpy(
+        rng.uniform(size=(q, k)).astype(np.float32)).to(dev)
     valid = torch.from_numpy(rng.uniform(size=(q, k)) < 0.9).to(dev)
-    got = k3.nms_sorted(boxes, valid, thresh)
-    assert torch.equal(got, k3.nms_sorted_plain(boxes, valid, thresh))
+    got = k3.exact_nms_mask(boxes, scores, valid, thresh)
+    assert torch.equal(got, nms_ops.nms_mask_plain(boxes, scores, valid,
+                                                   thresh))
+    assert 1 <= k3.last_cluster <= 8
     with pytest.raises(TypeError):
-        k3.nms_sorted(boxes.double(), valid, thresh)
+        k3.exact_nms_mask(boxes.double(), scores, valid, thresh)
 
 
 def test_knn_outlier_kernel_matches_plain_at_training_shapes():

@@ -8,10 +8,12 @@ Every case goes through four routes that must keep exactly the same boxes:
     not changed);
   - the port's `nms_mask(exact=True)`, which on a CPU tensor is the
     sort-free fixpoint;
-  - the port's `exact_nms_mask` (stable sort, scan of the sorted boxes,
-    unsort), the route a CUDA tensor takes, with the plain scan
-    `nms_sorted_plain` standing in for the kernel.
-No tolerance: kept masks are compared for equality.
+  - the port's `exact_nms_mask`, K3's wrapper, which on a CPU tensor is
+    its plain version `exact_nms_mask_plain` (stable sort, the plain scan
+    `nms_sorted_plain`, unsort).
+No tolerance: kept masks are compared for equality.  The kernel itself
+runs only on the card (tests/test_torch_port_gpu.py); here the layout the
+wrapper hands it is checked against every problem's elements.
 """
 
 from unittest import mock
@@ -81,8 +83,8 @@ def test_sort_puts_ties_in_index_order_and_invalid_last(name):
         seen["boxes"], seen["valid"] = boxes_s, valid_s
         return k3.nms_sorted_plain(boxes_s, valid_s, thr)
 
-    k3.exact_nms_mask(*(to_torch(a) for a in (boxes, scores, valid)),
-                      thresh, scan=spy)
+    k3.exact_nms_mask_plain(*(to_torch(a) for a in (boxes, scores, valid)),
+                            thresh, scan=spy)
     order = np.lexsort((np.broadcast_to(np.arange(valid.shape[-1]),
                                         valid.shape),
                         np.where(valid, -scores, np.inf)), axis=-1)
@@ -117,3 +119,47 @@ def test_cuda_route_is_refused_off_the_cpu_and_the_gpu():
     args = [to_torch(a).to("meta") for a in (boxes, scores, valid)]
     with pytest.raises(ValueError, match="device"):
         nms_t.nms_mask(*args, thresh, exact=True)
+
+
+def _problem_offsets(layout, q):
+    """Element offsets of problem q in boxes, scores, valid and keep, the
+    way the kernel decomposes its problem index."""
+    size, rest = layout[:k3.MAX_LEAD], layout[k3.MAX_LEAD:]
+    strides = [rest[:6], rest[6:11], rest[11:16], rest[16:21]]
+    offs = [0, 0, 0, 0]
+    for d in reversed(range(k3.MAX_LEAD)):
+        i, q = q % size[d], q // size[d]
+        offs = [o + i * st[d] for o, st in zip(offs, strides)]
+    return offs, strides
+
+
+@pytest.mark.parametrize("view,merged", [("contiguous", [6]),
+                                         ("movedim", [2, 3]),
+                                         ("sliced", [2, 3]),
+                                         ("single", [])])
+def test_launch_layout_reaches_every_problem(view, merged):
+    """The offset the kernel computes from `launch_layout` for each problem
+    is that problem's own in all four tensors, for the class-wise
+    `movedim` view too, whose leading dimensions do not merge."""
+    b, c, p = 2, 3, 7
+    boxes = torch.zeros(b, p, c, 4).movedim(2, 1)           # (b, c, p, 4)
+    scores = torch.zeros(b, p, c).movedim(2, 1)
+    if view == "contiguous":
+        boxes, scores = boxes.contiguous(), scores.contiguous()
+    elif view == "sliced":
+        boxes, scores = boxes[:, :, 1:], scores[:, :, 1:]
+    elif view == "single":
+        boxes, scores = boxes[0, 1], scores[0, 1]
+    valid = scores > 0
+    keep = torch.empty_like(valid)
+    tensors = (boxes, scores, valid, keep)
+    layout = k3.launch_layout(*tensors)
+    assert len(layout) == 25
+    assert layout[:k3.MAX_LEAD] == [1] * (4 - len(merged)) + merged
+    lead = scores.shape[:-1]
+    for q, idx in enumerate(np.ndindex(*lead)):
+        offs, strides = _problem_offsets(layout, q)
+        for t, off, st in zip(tensors, offs, strides):
+            assert off == sum(i * s for i, s in zip(idx, t.stride()))
+            assert st[k3.MAX_LEAD] == t.stride(len(lead))
+    assert strides[0][k3.MAX_LEAD + 1] == boxes.stride(-1)

@@ -177,6 +177,60 @@ def nms_cases():
         add(f"integer_corners_{thr}", grid, thresh=thr)
     add("batch_dims", _boxes(rng, (2, 3, 37)),
         valid=rng.uniform(size=(2, 3, 37)) < 0.8, thresh=0.7)
+    for name, case in nms_word_cases(rng).items():
+        add(name, *case)
+    return cases
+
+
+def _disjoint_boxes(k):
+    """k 20 x 20 boxes on a 30-pixel grid from y = 300: no two overlap."""
+    i = np.arange(k)
+    xy = np.stack([(i % 16) * 30.0, 300.0 + (i // 16) * 30.0], -1)
+    return np.concatenate([xy, xy + 20.0], -1).astype(np.float32)
+
+
+def _chain_into(boxes, ranks):
+    """Boxes at `ranks` slid 4 apart, 10 wide: each overlaps the next one
+    only (IoU 3/7 > 0.4), so greedy NMS keeps every other one."""
+    n = len(ranks)
+    boxes[ranks] = (np.float32([0, 0, 10, 10])
+                    + np.arange(n, dtype=np.float32)[:, None]
+                    * np.float32([4, 0, 4, 0]))
+    return boxes
+
+
+def nms_word_cases(rng):
+    """name -> (boxes, scores, valid, threshold): cases aimed at a kernel
+    that sorts by bit keys, resolves 64-rank words as a fixpoint and takes
+    strided views."""
+    cases = {}
+    # Signed zeros: identical pairs scored (-0.0, +0.0) and (+0.0, -0.0).
+    # Both sorts treat the two as equal, so the lower index is kept.
+    pairs = 24
+    boxes = np.repeat(_disjoint_boxes(pairs), 2, 0)
+    scores = np.zeros(2 * pairs, np.float32)
+    scores[0::4], scores[3::4] = -0.0, -0.0
+    cases["signed_zero_ties"] = (boxes, scores, None, 0.5)
+    # A chain of depth 64 inside the first 64-rank word (the fixpoint's
+    # worst case), and one across the boundary of two words.
+    rank_score = np.linspace(1, 0, 96)
+    cases["chain_64_in_one_word"] = (
+        _chain_into(_disjoint_boxes(96), np.arange(64)), rank_score, None,
+        0.4)
+    cases["chain_across_words"] = (
+        _chain_into(_disjoint_boxes(130), np.arange(58, 73)),
+        np.linspace(1, 0, 130), None, 0.4)
+    for k in (64, 65):
+        cases[f"k_{k}_exactly"] = (_boxes(rng, (k,)), None, None, 0.5)
+    # Class-wise NMS hands the kernel `movedim` views of a (B, P, C) layout.
+    b, p, c = 2, 50, 3
+    xy = rng.uniform(0, 80, (b, p, c, 2))
+    base = np.concatenate([xy, xy + rng.uniform(5, 40, (b, p, c, 2))], -1)
+    cases["classwise_movedim"] = (
+        np.moveaxis(base.astype(np.float32), 2, 1),
+        np.moveaxis(np.round(rng.uniform(size=(b, p, c)), 2)
+                    .astype(np.float32), 2, 1),
+        np.moveaxis(rng.uniform(size=(b, p, c)) < 0.8, 2, 1), 0.4)
     return cases
 
 

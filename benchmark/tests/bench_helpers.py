@@ -1,0 +1,66 @@
+"""Helpers of the benchmark's CPU tests: a whole run of a tiny cell on the
+CPU (the harness's look for a card skipped), judged as `run.py` judges
+it, with a fault or control planted where the run builds its step or
+its trainer (`faults.py`)."""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+
+import torch
+
+from benchmark import run, serve, train
+from benchmark.tests import faults
+from benchmark.tests.tiny import tiny_cell
+
+SEED = 12_345_678_901
+
+
+@contextlib.contextmanager
+def _patched(module, attr, value):
+    saved = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, saved)
+
+
+def serve_run(name="serve.gn.c4", config="r50fpn-gn", plant="",
+              seconds=1.5, clients=2):
+    """(correct, compared, readings, result) of a tiny serving run on the
+    CPU, each client's step with `plant` planted."""
+    c = tiny_cell(name, config, clients=clients)
+    client = (functools.partial(faults.serving_client, plant) if plant
+              else serve.client_main)
+    with _patched(serve, "client_main", client):
+        res = serve.run(c, SEED, seconds, False, device="cpu",
+                        t_process=time.perf_counter())
+    readings = run.check_serving(res, c["workload"]["check"]["far"])
+    ok, compared = run.judge(readings, c["workload"]["limits"])
+    return ok, compared, readings, res
+
+
+def serve_control(name="serve.gn.c4", config="r50fpn-gn"):
+    """The serving control on the CPU: the detector in bfloat16, pose and
+    graph + MPN as the reference in TF32 (on the CPU: float32, so only
+    the detector's numbers move)."""
+    from benchmark import calibrate
+    c = tiny_cell(name, config)
+    readings, _ = calibrate.serve_readings(c, SEED, torch.device("cpu"),
+                                           "bfloat16")
+    return run.judge(readings, c["workload"]["limits"]) + (readings,)
+
+
+def train_run(plant=""):
+    """(correct, compared, readings, result) of a tiny training run on the
+    CPU, its trainer built with `plant` planted."""
+    c = tiny_cell("train.det.gn.b2", "r50fpn-gn")
+    make = faults.trainer_maker(plant) if plant else train.make_trainer
+    with _patched(train, "make_trainer", make):
+        res = train.run(c, SEED, 1.0, False, device="cpu",
+                        t_process=time.perf_counter())
+    ok, compared = run.judge(res["readings"], c["workload"]["limits"])
+    return ok, compared, res["readings"], res

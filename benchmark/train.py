@@ -1,0 +1,210 @@
+"""The detection training cell: one `DetectionTrainer` (model and AdamW
+state), driven from the seed's weights through its first three steps in
+set-up, which the check follows, and then stepped back to back for the
+window on the traffic's pool of batches, each step with sampler draws the
+benchmark makes.  Batches travel as `DetectionTrainer.train` feeds them:
+compact (uint8 image, bool masks and voxels) and already on the card."""
+
+from __future__ import annotations
+
+import gc
+import shutil
+import tempfile
+import time
+
+from benchmark import common
+from benchmark import traffic as traffic_gen
+
+CHECKED_STEPS = 3
+
+
+def draws_for(gen, batch: int, anchors: int, rois: int, device, cls):
+    """The sampler draws of one step: uniform [0, 1) per anchor and per ROI
+    candidate (proposals, then GT slots) of each image."""
+    import torch
+    return cls(torch.rand((batch, anchors), generator=gen, device=device),
+               torch.rand((batch, rois), generator=gen, device=device))
+
+
+def draw_shapes(conf: dict) -> tuple:
+    """(anchors, ROI candidates) per image, from the reference's detector
+    built on the meta device."""
+    import torch
+
+    from benchmark.reference.config import Config
+    from benchmark.reference.models.mask_rcnn import MaskRCNN
+    cfg = common.config_from_dict(Config, conf["config"])
+    with torch.device("meta"):
+        det = MaskRCNN(cfg.detection, device="meta")
+    return (det.anchors.shape[0],
+            det.num_proposals_train() + cfg.detection.max_instances)
+
+
+def make_trainer(cfg, scratch: str, device, params: dict):
+    """The program's `DetectionTrainer` with its model and AdamW state, on
+    the given weights."""
+    from mot3d_tpu_torch.train.detection_trainer import DetectionTrainer
+    trainer = DetectionTrainer(cfg, scratch, device=device)
+    trainer.init_state(params=params)
+    return trainer
+
+
+def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
+        t_process: float = 0.0) -> dict:
+    import torch
+
+    from benchmark import compare
+    from benchmark import profiling as tr
+    from mot3d_tpu_torch.config import Config
+    from mot3d_tpu_torch.data.detection_loader import DetectionSample
+    from mot3d_tpu_torch.models import mask_rcnn as prog_rcnn
+    from mot3d_tpu_torch.models.mask_rcnn import DetectionDraws
+
+    conf, traf = c["config"], c["traffic"]
+    data = conf["config"]
+    cfg = common.config_from_dict(Config, data)
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    scratch = tempfile.mkdtemp(prefix="bench-train-")
+    w_det, _ = common.model_weights(conf, seed, dev)
+    start_params = {k: v.clone() for k, v in w_det.items()}
+    trainer = make_trainer(cfg, scratch, dev, w_det)
+    del w_det
+    host = traffic_gen.detection_batches(seed, traf, data)
+    pool = [DetectionSample(**{f: (torch.from_numpy(b[f]).to(dev)
+                                   if f in b else None)
+                               for f in DetectionSample._fields})
+            for b in host]
+    b = traf["batch"]
+    anchors, rois = draw_shapes(conf)
+    gen = torch.Generator(device=dev).manual_seed(seed % (2 ** 63))
+
+    def step(k):
+        draws = draws_for(gen, b, anchors, rois, dev, DetectionDraws)
+        return trainer.train_step(pool[k % len(pool)], draws), draws
+
+    # Set-up: the first steps, which the check follows, warm every shape.
+    # Their proposals are kept: the reference takes them (see compare.py).
+    model, opt = trainer.model, trainer.state.optimizer
+    prog = {"losses": []}
+    kept_draws, proposals = [], []
+    select = prog_rcnn.select_proposals
+
+    def kept_proposals(*args, **kwargs):
+        out = select(*args, **kwargs)
+        proposals.append(tuple(x.detach().clone() for x in out))
+        return out
+    prog_rcnn.select_proposals = kept_proposals
+    try:
+        for k in range(CHECKED_STEPS):
+            losses, draws = step(k)
+            kept_draws.append(tuple(x.clone() for x in draws))
+            prog["losses"].append({n: float(v) for n, v in losses.items()})
+            if k == 0:
+                prog["grads"] = compare.first_grads(model, opt)
+    finally:
+        prog_rcnn.select_proposals = select
+    prog["changes"] = compare.changes(model, start_params)
+    prog["proposals"] = proposals
+    del start_params
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    prof = tr.Profile(("step",)) if trace else None
+    tw = traf["trace_window"]
+    if trace:
+        tr.Profile.warm(dev)
+    start = time.perf_counter()
+    end = start + seconds
+    # A traced run profiles tw["profile_seconds"] of steps from t_prof;
+    # its rate is read before that.
+    t_prof = start + tw["profile_from"] * seconds
+    setup_s = start - t_process
+    k, steps, plain_rate = CHECKED_STEPS, 0, None
+    while time.perf_counter() < end:
+        if trace and prof.prof is None and time.perf_counter() >= t_prof:
+            prof.start()            # synchronises first
+            plain_rate = steps / (prof.t0 - start)
+        with tr.label("step", trace and prof.on):
+            step(k)
+        k += 1
+        steps += 1
+        if trace and prof.on:
+            prof.calls += 1
+            if time.perf_counter() >= prof.t0 + tw["profile_seconds"]:
+                prof.stop()
+    if trace and prof.on:
+        prof.stop()
+    sync()
+    window = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    summary = prof.summary() if trace else None
+
+    # Free the program, then follow its first steps with the reference.
+    t_check = time.perf_counter()
+    del trainer, model, opt, pool, step
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(scratch, ignore_errors=True)
+    ref = reference_steps(conf, seed, host, kept_draws, proposals, dev)
+    readings = compare.train_readings(prog, ref)
+    readings["check_s"] = time.perf_counter() - t_check
+    return {"setup_s": setup_s, "window_s": window, "steps": steps,
+            "attempted": steps, "images": steps * b,
+            "train_images_per_s": steps * b / window,
+            "memory_peak_bytes": peak, "trace": summary,
+            "plain_rate": plain_rate,
+            "readings": readings}
+
+
+def reference_steps(conf: dict, seed: int, host: list, draws: list,
+                    proposals: list, dev) -> dict:
+    """The reference's first steps from the same weights, batches and
+    draws, in float32 with TF32 off.  Each step takes the proposals the
+    program selected at that step and keeps its own beside them: the
+    selection (top-k and NMS on the RPN's scores) turns the last digits of
+    the scores into different proposal sets, and the ROI losses then
+    differ by the sampling and not by the arithmetic."""
+    import torch
+
+    from benchmark import compare
+    from benchmark.reference import steps
+    from benchmark.reference.config import Config
+    from benchmark.reference.models import mask_rcnn as ref_rcnn
+
+    cfg = common.config_from_dict(Config, conf["config"])
+    det = ref_rcnn.MaskRCNN(cfg.detection, device=dev)
+    w_det, _ = common.model_weights(conf, seed, dev)
+    det.load_state_dict(w_det)
+    opt, sched = steps.detection_optimizer(cfg, det)
+    select = ref_rcnn.select_proposals
+    own, given = [], iter(proposals)
+
+    def program_proposals(*args, **kwargs):
+        mine = select(*args, **kwargs)
+        own.append(tuple(x.detach() for x in mine))
+        theirs = next(given, None)
+        if theirs is None or theirs[0].shape != mine[0].shape:
+            return mine
+        return theirs
+    ref_rcnn.select_proposals = program_proposals
+    out = {"losses": []}
+    try:
+        with steps.true_fp32():
+            for k, d in enumerate(draws):
+                out["losses"].append(steps.train_step(
+                    det, opt, sched, host[k],
+                    ref_rcnn.DetectionDraws(*d), dev))
+                if k == 0:
+                    out["grads"] = compare.leaf_norms(
+                        {n: p.grad for n, p in det.named_parameters()})
+    finally:
+        ref_rcnn.select_proposals = select
+    out["changes"] = compare.changes(det, w_det)
+    out["proposals"] = own
+    del det, opt, w_det
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out

@@ -2106,20 +2106,34 @@ def _office_model(cfg, det, dev):
 def _office_run(cfg, model, ds, scene, mode, dev, seed):
     """One scene through `office_inference` (stage seconds, K1 launches)
     and the CLI's visual export without shapes (trajectory PLYs and the
-    replay page) under build/."""
+    replay page) under build/.  A stage's seconds are the host time inside
+    its `office.*` spans (`utils/trace.py`), with no synchronise at the
+    stage's end: work the host queued in one stage may run on the card in
+    the next."""
     from mot3d_tpu_torch.data.office import office_inference
     from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
     from mot3d_tpu_torch.tracking.visualise import export_sequence
+    from mot3d_tpu_torch.utils import trace
 
-    stage = {}
     n1 = k1.launches.count
     sync()
     t0 = time.perf_counter()
-    trajs, frames = office_inference(cfg, model, ds, scene, tracker=mode,
-                                     device=dev, stage_s=stage,
-                                     generator=torch.Generator(dev)
-                                     .manual_seed(seed))
+    trace.drain()
+    trace.enable()
+    try:
+        trajs, frames = office_inference(cfg, model, ds, scene, tracker=mode,
+                                         device=dev,
+                                         generator=torch.Generator(dev)
+                                         .manual_seed(seed))
+    finally:
+        trace.disable()
     t1 = time.perf_counter()
+    stage = {}
+    for r in trace.drain():
+        if r["name"].startswith("office."):
+            key = r["name"].split(".", 1)[1] + "_s"
+            stage[key] = (stage.get(key, 0.0)
+                          + (r["end_ns"] - r["start_ns"]) / 1e9)
     export_sequence(f"build/chip_smoke_office/export_{mode}_{scene}", trajs)
     stage["export_s"] = time.perf_counter() - t1
     total = time.perf_counter() - t0

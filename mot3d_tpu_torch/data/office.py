@@ -20,7 +20,6 @@ functions that use them.
 from __future__ import annotations
 
 import os
-import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -29,6 +28,7 @@ import torch
 from mot3d_tpu_torch.config import Config
 from mot3d_tpu_torch.device import resolve_device
 from mot3d_tpu_torch.geometry.umeyama import make_draws
+from mot3d_tpu_torch.utils import trace
 
 
 class OfficeFrame(NamedTuple):
@@ -92,31 +92,12 @@ def frame_generator(seed: int, index: int, device) -> torch.Generator:
     return g
 
 
-class _Clock:
-    """Seconds by stage into `stage_s` (synchronising the device at each
-    stage's end), or nothing when `stage_s` is None."""
-
-    def __init__(self, stage_s: Optional[dict], device: torch.device):
-        self.stage_s, self.device = stage_s, device
-        self.t0 = time.perf_counter()
-
-    def lap(self, stage: str) -> None:
-        if self.stage_s is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.stage_s[stage] = self.stage_s.get(stage, 0.0) + now - self.t0
-        self.t0 = now
-
-
 @torch.no_grad()
 def office_inference(cfg: Config, model, dataset: OfficeDataset, scene: str,
                      max_frames: Optional[int] = None,
                      dist_thres: float = 0.25, tracker: str = "heuristic",
                      device=None, draws=None,
-                     generator: Optional[torch.Generator] = None,
-                     stage_s: Optional[dict] = None):
+                     generator: Optional[torch.Generator] = None):
     """Detector -> camera-space pose (no GT gates) -> tracking, one frame
     at a time: the office variant of the combined pipeline
     (`Detection/inference_office_dset.py`, postprocess_dets_office +
@@ -133,9 +114,10 @@ def office_inference(cfg: Config, model, dataset: OfficeDataset, scene: str,
     `model` is a `MaskRCNN`, moved to `device` (None: the GPU, raising
     without one).  RANSAC draws: `draws` (T, I, iters, S) for the scene's
     frames, else made per frame with `generator`, else with
-    `frame_generator(cfg.run.seed, t)`.  With a dict `stage_s`, the
-    seconds of each stage (reader, detector, pose or centres, tracker) are
-    added to it.  Returns (trajectories, per-frame detection dicts)."""
+    `frame_generator(cfg.run.seed, t)`.  Its stages are the spans
+    `office.reader`, `office.detector`, `office.centres` or `office.pose`
+    (each frame) and `office.tracker` (`utils/trace.py`).  Returns
+    (trajectories, per-frame detection dicts)."""
     from scipy.spatial.transform import Rotation
 
     from mot3d_tpu_torch.parallel.infer_step import to_host
@@ -154,68 +136,70 @@ def office_inference(cfg: Config, model, dataset: OfficeDataset, scene: str,
     no_gt_valid = torch.zeros((1, 1), dtype=torch.bool, device=device)
     no_gt3d = torch.zeros((1, 1, 8, 3), dtype=dt, device=device)
     pad_h, pad_w = cfg.detection.pad_height, cfg.detection.pad_width
-    clock = _Clock(stage_s, device)
     per_frame = []
     names = dataset.frames(scene)[:max_frames]
     for t, name in enumerate(names):
-        fr = dataset.load_frame(scene, name)
-        img = np.zeros((pad_h, pad_w, 3), np.float32)
-        img[:fr.rgb.shape[0], :fr.rgb.shape[1]] = fr.rgb
-        img = torch.from_numpy(img).to(device)[None]
-        depth = torch.from_numpy(fr.depth).to(device)
-        intr = torch.from_numpy(fr.intrinsics).to(device)
-        clock.lap("reader_s")
-        dets = model.predict(img)
-        clock.lap("detector_s")
+        with trace.span("office.reader"):
+            fr = dataset.load_frame(scene, name)
+            img = np.zeros((pad_h, pad_w, 3), np.float32)
+            img[:fr.rgb.shape[0], :fr.rgb.shape[1]] = fr.rgb
+            img = torch.from_numpy(img).to(device)[None]
+            depth = torch.from_numpy(fr.depth).to(device)
+            intr = torch.from_numpy(fr.intrinsics).to(device)
+        with trace.span("office.detector"):
+            dets = model.predict(img)
         frame_dets = []
-        if tracker == "f2f":
-            h, w = depth.shape
-            full = paste_patch(dets.masks[0][..., None], dets.boxes[0],
-                               (h, w))[..., 0]
-            ok = dets.valid[0] & (dets.scores[0]
-                                  > cfg.combined.objectness_office)
-            centres, has = segment_centers(full, dets.boxes[0], ok, depth,
-                                           intr)
-            centres, has, classes, boxes = to_host(
-                (centres, has, dets.classes[0], dets.boxes[0]))
-            clock.lap("centres_s")
-            for i in np.nonzero(has)[0]:
-                frame_dets.append({"loc": centres[i], "cls": int(classes[i]),
-                                   "box2d": boxes[i]})
-        else:
-            i_slots = dets.boxes.shape[1]
-            if draws is not None:
-                d = torch.as_tensor(draws[t], device=device)[None]
+        stage = "office.centres" if tracker == "f2f" else "office.pose"
+        with trace.span(stage):
+            if tracker == "f2f":
+                h, w = depth.shape
+                full = paste_patch(dets.masks[0][..., None], dets.boxes[0],
+                                   (h, w))[..., 0]
+                ok = dets.valid[0] & (dets.scores[0]
+                                      > cfg.combined.objectness_office)
+                centres, has = segment_centers(full, dets.boxes[0], ok,
+                                               depth, intr)
+                centres, has, classes, boxes = to_host(
+                    (centres, has, dets.classes[0], dets.boxes[0]))
+                for i in np.nonzero(has)[0]:
+                    frame_dets.append({"loc": centres[i],
+                                       "cls": int(classes[i]),
+                                       "box2d": boxes[i]})
             else:
-                d = make_draws((1, i_slots, p.ransac_iters,
-                                p.ransac_sample_size),
-                               generator if generator is not None else
-                               frame_generator(cfg.run.seed, t, device),
-                               device)
-            out = postprocess_frames(
-                dets.boxes, dets.scores, dets.classes, dets.valid,
-                dets.masks, dets.voxels, dets.nocs, no_gt2d, no_gt_valid,
-                depth[None], eye, intr, no_gt3d, cfg, use_gt_gate=False,
-                draws=d)
-            valid, euler, loc, scale, classes, voxels, boxes = to_host(
-                [x[0] for x in (out.valid, out.rotations, out.translations,
-                                out.scales, out.classes, out.voxels,
-                                out.pred_boxes)])
-            clock.lap("pose_s")
-            for i in np.nonzero(valid)[0]:
-                c2w = np.identity(4)
-                c2w[:3, :3] = Rotation.from_euler(
-                    "xyz", euler[i]).as_matrix() * float(scale[i])
-                c2w[:3, 3] = loc[i]
-                frame_dets.append({
-                    "loc": loc[i], "euler": euler[i],
-                    "scale": float(scale[i]), "cad2world": c2w,
-                    "cls": int(classes[i]), "voxel": voxels[i],
-                    "box": boxes[i]})
+                i_slots = dets.boxes.shape[1]
+                if draws is not None:
+                    d = torch.as_tensor(draws[t], device=device)[None]
+                else:
+                    d = make_draws((1, i_slots, p.ransac_iters,
+                                    p.ransac_sample_size),
+                                   generator if generator is not None else
+                                   frame_generator(cfg.run.seed, t, device),
+                                   device)
+                out = postprocess_frames(
+                    dets.boxes, dets.scores, dets.classes, dets.valid,
+                    dets.masks, dets.voxels, dets.nocs, no_gt2d,
+                    no_gt_valid, depth[None], eye, intr, no_gt3d, cfg,
+                    use_gt_gate=False, draws=d)
+                valid, euler, loc, scale, classes, voxels, boxes = to_host(
+                    [x[0] for x in (out.valid, out.rotations,
+                                    out.translations, out.scales,
+                                    out.classes, out.voxels,
+                                    out.pred_boxes)])
+                for i in np.nonzero(valid)[0]:
+                    c2w = np.identity(4)
+                    c2w[:3, :3] = Rotation.from_euler(
+                        "xyz", euler[i]).as_matrix() * float(scale[i])
+                    c2w[:3, 3] = loc[i]
+                    frame_dets.append({
+                        "loc": loc[i], "euler": euler[i],
+                        "scale": float(scale[i]), "cad2world": c2w,
+                        "cls": int(classes[i]), "voxel": voxels[i],
+                        "box": boxes[i]})
         per_frame.append(frame_dets)
-    trk = (F2FTracker(dist_thres=dist_thres, seq_len=len(names))
-           if tracker == "f2f"
-           else HeuristicTracker(dist_thres=dist_thres, seq_len=len(names)))
-    trajectories = trk.track(per_frame)
-    clock.lap("tracker_s")
+    with trace.span("office.tracker"):
+        trk = (F2FTracker(dist_thres=dist_thres, seq_len=len(names))
+               if tracker == "f2f"
+               else HeuristicTracker(dist_thres=dist_thres,
+                                     seq_len=len(names)))
+        trajectories = trk.track(per_frame)
     return trajectories, per_frame

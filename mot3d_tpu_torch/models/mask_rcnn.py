@@ -52,6 +52,7 @@ from mot3d_tpu_torch.ops.nms import (classwise_nms_mask, gather_rows,
                                      top_k_by_score)
 from mot3d_tpu_torch.ops.roi_align import (
     multilevel_roi_align_batched_packed, roi_align_matmul)
+from mot3d_tpu_torch.utils import trace
 
 STRIDES = (4, 8, 16, 32)          # P2..P5 (ROI pooling levels)
 RPN_STRIDES = (4, 8, 16, 32, 64)  # + P6 for proposals
@@ -371,7 +372,9 @@ class MaskRCNN(nn.Module):
     def predict(self, images) -> Detections:
         """Serving: `predict_features` on `features(images)` without
         autograd."""
-        return self.predict_features(self.features(images))
+        with trace.span("detect.backbone"):
+            feats = self.features(images)
+        return self.predict_features(feats)
 
     def predict_features(self, feats) -> Detections:
         """Inference from the FPN features of a batch of images, with
@@ -380,43 +383,47 @@ class MaskRCNN(nn.Module):
         the detector under `pose.differentiable=True`."""
         c = self.cfg
         b = feats[0].shape[0]
-        objness, deltas = self.rpn_head(feats)
         feats4 = feats[:4]
-        pb, _, pv = select_proposals(
-            self.anchors, objness, deltas, self.slices,
-            (c.pad_height, c.pad_width), c.rpn_pre_nms_topk_test,
-            c.rpn_post_nms_topk_test, c.rpn_nms_thresh, not c.fast_nms)
-        pooled7 = multilevel_roi_align_batched_packed(
-            feats4, pb, c.box_pooler_resolution, STRIDES)
-        p = pb.shape[1]
-        cc = c.num_classes
-        cls_logits, box_deltas = self.box_head(
-            pooled7.reshape((b * p,) + pooled7.shape[2:]))
-        probs = torch.softmax(cls_logits.reshape(b, p, -1), -1)[..., :cc]
-        boxes_c = decode_deltas(pb[:, :, None, :],
-                                box_deltas.reshape(b, p, cc, 4))
-        boxes_c = torch.minimum(torch.clamp(boxes_c, min=0.0), self.box_max)
-        valid_pc = pv[:, :, None] & (probs > c.score_thresh_test)
-        flat_cls = torch.arange(cc, device=pb.device).repeat(p)
+        with trace.span("detect.rpn"):
+            objness, deltas = self.rpn_head(feats)
+            pb, _, pv = select_proposals(
+                self.anchors, objness, deltas, self.slices,
+                (c.pad_height, c.pad_width), c.rpn_pre_nms_topk_test,
+                c.rpn_post_nms_topk_test, c.rpn_nms_thresh, not c.fast_nms)
+        with trace.span("detect.box"):
+            pooled7 = multilevel_roi_align_batched_packed(
+                feats4, pb, c.box_pooler_resolution, STRIDES)
+            p = pb.shape[1]
+            cc = c.num_classes
+            cls_logits, box_deltas = self.box_head(
+                pooled7.reshape((b * p,) + pooled7.shape[2:]))
+            probs = torch.softmax(cls_logits.reshape(b, p, -1), -1)[..., :cc]
+            boxes_c = decode_deltas(pb[:, :, None, :],
+                                    box_deltas.reshape(b, p, cc, 4))
+            boxes_c = torch.minimum(torch.clamp(boxes_c, min=0.0),
+                                    self.box_max)
+            valid_pc = pv[:, :, None] & (probs > c.score_thresh_test)
+            flat_cls = torch.arange(cc, device=pb.device).repeat(p)
 
-        keep = classwise_nms_mask(boxes_c, probs, valid_pc,
-                                  c.nms_thresh_test,
-                                  not c.fast_nms).reshape(b, p * cc)
-        flat_scores = probs.reshape(b, p * cc)
-        idx, ok = top_k_by_score(
-            torch.where(keep, flat_scores,
-                        torch.full_like(flat_scores, -torch.inf)),
-            keep, c.detections_per_image)
-        det_boxes = gather_rows(boxes_c.reshape(b, p * cc, 4), idx)
-        det_scores = torch.where(ok, gather_rows(flat_scores, idx),
-                                 torch.zeros_like(ok, dtype=probs.dtype))
-        det_cls = flat_cls[idx]
-        pooled14 = multilevel_roi_align_batched_packed(
-            feats4, det_boxes, c.mask_pooler_resolution, STRIDES)
-        d = det_boxes.shape[1]
-        masks, voxels, nocs = self.dense_heads(
-            pooled14.reshape((b * d,) + pooled14.shape[2:]),
-            det_cls.reshape(-1))
+            keep = classwise_nms_mask(boxes_c, probs, valid_pc,
+                                      c.nms_thresh_test,
+                                      not c.fast_nms).reshape(b, p * cc)
+            flat_scores = probs.reshape(b, p * cc)
+            idx, ok = top_k_by_score(
+                torch.where(keep, flat_scores,
+                            torch.full_like(flat_scores, -torch.inf)),
+                keep, c.detections_per_image)
+            det_boxes = gather_rows(boxes_c.reshape(b, p * cc, 4), idx)
+            det_scores = torch.where(ok, gather_rows(flat_scores, idx),
+                                     torch.zeros_like(ok, dtype=probs.dtype))
+            det_cls = flat_cls[idx]
+        with trace.span("detect.heads"):
+            pooled14 = multilevel_roi_align_batched_packed(
+                feats4, det_boxes, c.mask_pooler_resolution, STRIDES)
+            d = det_boxes.shape[1]
+            masks, voxels, nocs = self.dense_heads(
+                pooled14.reshape((b * d,) + pooled14.shape[2:]),
+                det_cls.reshape(-1))
         return Detections(
             det_boxes, det_scores, det_cls, ok,
             masks.reshape((b, d) + masks.shape[1:]),

@@ -35,6 +35,7 @@ from mot3d_tpu_torch.parallel.mesh import (DataMesh, gather_batch,
                                            mesh_device, shard_batch)
 from mot3d_tpu_torch.pose.pipeline import FrameDetections, postprocess_frames
 from mot3d_tpu_torch.tracking.graph_builder import GraphTemplate, build_graph
+from mot3d_tpu_torch.utils import trace
 
 
 class SequenceBatch(NamedTuple):
@@ -81,9 +82,18 @@ def outputs_to_host(outputs: SequenceOutputs) -> SequenceOutputs:
     return SequenceOutputs(*to_host(outputs))
 
 
+def _h2d(x, device: torch.device) -> bool:
+    """Whether uploading `x` to `device` copies host memory to a CUDA
+    device."""
+    return device.type == "cuda" and (not isinstance(x, torch.Tensor)
+                                      or x.device.type == "cpu")
+
+
 class SequenceInferStep:
     """The inference step; call it on a `SequenceBatch`.  Its stages
-    (`detect`, `pose`, `track`) are public so a caller can time them."""
+    (`detect`, `pose`, `track`) are public so a caller can time them; each
+    sequence runs in a span `sequence` holding one span per stage
+    (`utils/trace.py`)."""
 
     def __init__(self, det_model: MaskRCNN, trk_model: TrackerModel,
                  template: GraphTemplate, cfg: Config, use_gt_gate: bool,
@@ -102,7 +112,13 @@ class SequenceInferStep:
         self.e_fwd = len(template.src_frame)
 
     def _tensor(self, x, dtype):
-        return torch.as_tensor(x, device=self.device).to(dtype)
+        """`x` on the step's device in `dtype`: the one place where the
+        step uploads host inputs (span `upload`, counting the source's
+        bytes while tracing is on)."""
+        with trace.span("upload"):
+            if trace.on and _h2d(x, self.device):
+                trace.count("h2d_bytes", x.nbytes)
+            return torch.as_tensor(x, device=self.device).to(dtype)
 
     @torch.no_grad()
     def detect(self, images) -> Detections:
@@ -170,10 +186,14 @@ class SequenceInferStep:
             draws = self.make_draws(batch, generator)
         outs = []
         for b in range(len(batch.images)):
-            seq = SequenceBatch(*(x[b] for x in batch))
-            dets = self.detect(seq.images)
-            frames = self.pose(dets, seq, draws[b])
-            edge_probs, obj_ids = self.track(frames, seq)
+            with trace.span("sequence"):
+                seq = SequenceBatch(*(x[b] for x in batch))
+                with trace.span("detect"):
+                    dets = self.detect(seq.images)
+                with trace.span("pose"):
+                    frames = self.pose(dets, seq, draws[b])
+                with trace.span("track"):
+                    edge_probs, obj_ids = self.track(frames, seq)
             outs.append(SequenceOutputs(
                 edge_probs=edge_probs, obj_ids=obj_ids, valid=frames.valid,
                 translations=frames.translations, classes=frames.classes,

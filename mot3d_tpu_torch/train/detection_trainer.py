@@ -35,6 +35,7 @@ from mot3d_tpu_torch.train.checkpoints import (CheckpointManager,
                                                resume_trainer)
 from mot3d_tpu_torch.train.combined_trainer import detection_optimizer
 from mot3d_tpu_torch.train.metrics_writer import MetricsWriter
+from mot3d_tpu_torch.utils import trace
 
 
 class DetectionTrainState(ModelTrainState):
@@ -99,16 +100,23 @@ class DetectionTrainer:
     def train_step(self, batch: DetectionSample,
                    draws: DetectionDraws) -> Dict[str, torch.Tensor]:
         """One update on a (B, ...) batch with the given sampler draws;
-        returns the loss dict (device scalars) with "total"."""
+        returns the loss dict (device scalars) with "total".  Its phases
+        are the spans `train.upload`, `train.forward`, `train.backward`
+        and `train.optimizer`."""
         state = self.state
-        images = torch.as_tensor(batch.image).to(self.device).to(self.dtype)
-        gt = sample_to_gt(batch, self.dtype, self.device)
+        with trace.span("train.upload"):
+            images = torch.as_tensor(batch.image).to(self.device).to(
+                self.dtype)
+            gt = sample_to_gt(batch, self.dtype, self.device)
         self.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        losses = self.model.train_losses(images, gt, draws)
-        total = sum(v for k, v in losses.items() if k.startswith("loss"))
-        total.backward()
-        update(self.model, state.optimizer, state.scheduler)
+        with trace.span("train.forward"):
+            losses = self.model.train_losses(images, gt, draws)
+            total = sum(v for k, v in losses.items() if k.startswith("loss"))
+        with trace.span("train.backward"):
+            total.backward()
+        with trace.span("train.optimizer"):
+            update(self.model, state.optimizer, state.scheduler)
         state.step += 1
         out = {k: v.detach() for k, v in losses.items()}
         out["total"] = total.detach()

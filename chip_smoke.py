@@ -29,7 +29,11 @@ Phases, one JSON line each; any failure exits non-zero:
      rows, odd K, a class-wise `movedim` view) and, on unsorted scores, the
      evaluation path's six calls with call, device and plain times and the
      cluster size, the training path's largest call and K = 4096 (runs
-     after phase 4);
+     after phase 4), then the gather ROIAlign against its plain version at
+     the serving poolers' shapes (call, device, plain and channels-last
+     copy times, the byte bound) and the training step's, backward and box
+     gradients included; the main path (phase 5) must launch it twice a
+     sequence;
   9. the reference-parity evaluation path at full width: the detector in
      import mode (`import_config`: affine norms, stride on the 1x1, torch
      voxel reshape, anchor offset 0) with exact NMS (K3 on the path),
@@ -114,8 +118,9 @@ in the workflow, on the reference-weights path, the office path, with
 final status line.
 Run it from the root of a checkout (it imports mot3d_tpu_torch from
 there) on a machine with a CUDA device; without one it exits with code 2.
-With --kernels-only it stops after K3: copied into another checkout and
-run from there, it times that checkout's K1, K2 and K3 the same way.
+With --kernels-only it stops after the ROIAlign phase: copied into another
+checkout and run from there, it times that checkout's K1, K2, K3 and
+ROIAlign kernels the same way (ROIAlign skipped where there is none).
 """
 
 from __future__ import annotations
@@ -589,6 +594,136 @@ def phase_k3(rng, dev, cfg):
     return res
 
 
+def _roi_inputs(rng, b, n, cfg, dev):
+    """FPN maps of b frames at the configuration's padded size (unit
+    normal) and n boxes a frame, log-uniform 4-400 px, centred anywhere on
+    the frame: boxes on every level."""
+    from mot3d_tpu_torch.models.mask_rcnn import STRIDES
+
+    det = cfg.detection
+    hw = (det.pad_height, det.pad_width)
+    maps = [torch.from_numpy(rng.normal(
+        size=(b, det.fpn_channels, hw[0] // s, hw[1] // s)).astype(
+            np.float32)).to(dev) for s in STRIDES]
+    ctr = rng.uniform(0, 1, (b, n, 2)) * [hw[1], hw[0]]
+    wh = np.exp(rng.uniform(np.log(4), np.log(400), (b, n, 2)))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    return maps, torch.from_numpy(boxes.astype(np.float32)).to(dev)
+
+
+def _roi_tap_bytes(maps, boxes, out, strides) -> float:
+    """Bytes of the map cells that the boxes' taps weigh (a non-zero
+    weight), each counted once: per frame and level, the union over the
+    level's boxes of their rows x columns with a weight."""
+    from mot3d_tpu_torch.ops.roi_align import _map_weights, assign_fpn_level
+
+    level = assign_fpn_level(boxes, 2, 1 + len(maps)) - 2
+    cells = 0
+    for li, (m, stride) in enumerate(zip(maps, strides)):
+        h, w = m.shape[-2:]
+        for i in range(boxes.shape[0]):
+            bx = boxes[i][level[i] == li]
+            if len(bx):
+                ry, rx = _map_weights(bx, out, h, w, 1.0 / stride, 2)
+                rows = (ry != 0).any(1).float()          # (n, h)
+                cols = (rx != 0).any(1).float()          # (n, w)
+                cells += int(((rows.T @ cols) > 0).sum())
+    return 4.0 * cells * maps[0].shape[1]
+
+
+def phase_roi_align(rng, dev, cfg):
+    """The gather ROIAlign against its plain version (TF32 off) at the
+    serving poolers' shapes (a sequence's frames x the proposals at 7 x 7,
+    x the detections at 14 x 14: timed, the kernel alone and the call with
+    its channels-last copy of the maps, against the bytes of the output and
+    of the map cells the taps weigh) and the training step's (2 x 512 at
+    7 x 7, 2 x 128 at 14 x 14: forward and backward with box gradients,
+    timed, and the backward run twice on the same inputs).  Skipped in a
+    checkout without the kernel (--kernels-only elsewhere)."""
+    import importlib.util
+
+    if importlib.util.find_spec("mot3d_tpu_torch.ops.cuda.roi_align") is None:
+        emit({"phase": "roi_align", "skipped": "no gather ROIAlign here"})
+        return None
+    from mot3d_tpu_torch.models.mask_rcnn import STRIDES
+    from mot3d_tpu_torch.ops.cuda import roi_align as ra
+    from mot3d_tpu_torch.ops.roi_align import \
+        multilevel_roi_align_batched_packed as plain
+    from mot3d_tpu_torch.ops.roi_align import roi_align_pyramid as pool
+
+    det, t = cfg.detection, cfg.tracking.seq_len
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+    for name, b, n, out, grad in (
+            ("box", t, det.rpn_post_nms_topk_test, det.box_pooler_resolution,
+             False),
+            ("mask", t, det.detections_per_image, det.mask_pooler_resolution,
+             False),
+            ("box_train", 2, det.roi_batch_per_image,
+             det.box_pooler_resolution, True),
+            ("mask_train", 2, det.fg_head_buffer, det.mask_pooler_resolution,
+             True)):
+        maps, boxes = _roi_inputs(rng, b, n, cfg, dev)
+        before = ra.launches.count
+        got = pool(maps, boxes, out, STRIDES)
+        want = plain(maps, boxes, out, STRIDES)
+        sync()
+        check(ra.launches.count == before + 1, f"ROIAlign {name}: launches")
+        err = float((got - want).abs().max())
+        res = {"shape": [b, n, out, det.fpn_channels], "max_abs_err": err}
+
+        def call():
+            return pool(maps, boxes, out, STRIDES)
+
+        res["ms"] = cuda_time_ms(call, 20)
+        res["device_ms"] = sum(kernel_device_ms(
+            call, "roi_align_forward").values())
+        res["layout_ms"] = cuda_time_ms(lambda: [
+            m.contiguous(memory_format=torch.channels_last) for m in maps],
+            20)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: plain(maps, boxes, out, STRIDES), 3, 1)
+        res["tap_mb"] = _roi_tap_bytes(maps, boxes, out, STRIDES) / 1e6
+        res["maps_mb"] = 4.0 * sum(m.numel() for m in maps) / 1e6
+        nbytes = 4.0 * (got.numel() + boxes.numel()) + res["tap_mb"] * 1e6
+        res["bound_ms"], res["bound_by"] = bound_ms(0.0, nbytes)
+        if grad:
+            g = torch.randn_like(want)
+
+            def fwd_bwd(fn, m_in):
+                m = [x.detach().requires_grad_() for x in m_in]
+                bx = boxes.detach().requires_grad_()
+                (fn(m, bx, out, STRIDES) * g).sum().backward()
+                return [x.grad for x in m], bx.grad
+
+            gm, gb = fwd_bwd(pool, maps)
+            gm2, gb2 = fwd_bwd(pool, maps)
+            pm, pb = fwd_bwd(plain, maps)
+            sync()
+            res["grad_repeat_equal"] = all(
+                torch.equal(a, w) for a, w in zip(gm + [gb], gm2 + [gb2]))
+            res["grad_maps_rel_err"] = max(
+                float((a - w).abs().max() / w.abs().max())
+                for a, w in zip(gm, pm))
+            res["grad_boxes_rel_err"] = float(
+                (gb - pb).abs().max() / pb.abs().max())
+            res["fwd_bwd_ms"] = cuda_time_ms(lambda: fwd_bwd(pool, maps), 10)
+            res["backward_device_ms"] = sum(kernel_device_ms(
+                lambda: fwd_bwd(pool, maps), "roi_align_backward").values())
+            res["plain_fwd_bwd_ms"] = cuda_time_ms(
+                lambda: fwd_bwd(plain, maps), 3, 1)
+        emit({"phase": "roi_align", "pooler": name, **res})
+        check(err <= 1e-5, f"ROIAlign {name}: forward error {err}")
+        if grad:
+            check(res["grad_maps_rel_err"] <= 1e-5
+                  and res["grad_boxes_rel_err"] <= 1e-4,
+                  f"ROIAlign {name}: backward errors")
+        result[name] = res
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    return result
+
+
 def _sequence(rng, cfg, cam_x=0.0):
     """One synthetic 25-frame sequence: a room (tilted floor-to-wall depth)
     with four box-shaped objects, a camera that pans slowly, and the
@@ -682,6 +817,7 @@ def phase_main(seed, cfg, dev):
     from mot3d_tpu_torch.models.mpn import TrackerModel
     from mot3d_tpu_torch.ops.cuda import knn_outlier as k1
     from mot3d_tpu_torch.ops.cuda import pose_extract as k2
+    from mot3d_tpu_torch.ops.cuda import roi_align as ra
     from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
     from mot3d_tpu_torch.tracking.graph_builder import make_template
 
@@ -706,6 +842,7 @@ def phase_main(seed, cfg, dev):
 
     k1.launches.reset()
     k2.launches.reset()
+    ra.launches.reset()
     stage = {"detector_s": 0.0, "pose_s": 0.0, "graph_mpn_s": 0.0}
     t0 = time.perf_counter()
     results = []
@@ -717,7 +854,8 @@ def phase_main(seed, cfg, dev):
         results.append((dets, frames, probs))
     total = time.perf_counter() - t0
     launches = {"knn_outlier": k1.launches.count,
-                "pose_extract": k2.launches.count}
+                "pose_extract": k2.launches.count,
+                "roi_align": ra.launches.count}
     for dets, frames, probs in results:
         check(bool(torch.isfinite(frames.translations).all()),
               "non-finite translations")
@@ -725,6 +863,8 @@ def phase_main(seed, cfg, dev):
         check(bool(((probs >= 0) & (probs <= 1)).all()), "edge probs range")
     check(launches["knn_outlier"] == 2 * 3,
           f"K1 launched {launches['knn_outlier']} times, expected 6")
+    check(launches["roi_align"] == 2 * 3,
+          f"ROIAlign launched {launches['roi_align']} times, expected 6")
     from mot3d_tpu_torch.config import Config
     res = {"phase": "main_path",
            "config": "default Config()" if cfg == Config() else "custom",
@@ -2860,9 +3000,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="run the device, build, K1, K2 and K3 phases and "
-                         "stop (no status line): to time one checkout's "
-                         "kernels "
+                    help="run the device, build, K1, K2, K3 and ROIAlign "
+                         "phases and stop (no status line): to time one "
+                         "checkout's kernels "
                          "beside another's in one session")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2881,6 +3021,7 @@ def main() -> int:
     k1_res = phase_k1(rng, dev)
     k2_res = phase_k2(rng, dev, cfg)
     k3_res = phase_k3(rng, dev, cfg)
+    roi_res = phase_roi_align(rng, dev, cfg)
     if args.kernels_only:
         return 0
     det, trk, template, seqs, draws, main_launches, main_step = \
@@ -2950,6 +3091,15 @@ def main() -> int:
          "office_launches": office_launches["nms"],
          "full_launches": full_launches["nms"],
          "dp_launches": dp_launches["nms"]},
+        {"name": "roi_align", "route": "cuda",
+         "source": "mot3d_tpu_torch/csrc/roi_align.cu", "replaces": None,
+         "launches": main_launches["roi_align"],
+         "max_abs_err": roi_res["box"]["max_abs_err"],
+         "ms": roi_res["box"]["ms"], "device_ms": roi_res["box"]["device_ms"],
+         "layout_ms": roi_res["box"]["layout_ms"],
+         "plain_ms": roi_res["box"]["plain_ms"],
+         "bound_ms": roi_res["box"]["bound_ms"],
+         "bound_by": roi_res["box"]["bound_by"], "library_ms": None},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

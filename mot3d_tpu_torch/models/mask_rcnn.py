@@ -3,10 +3,11 @@
 
 Every stage is padded to config maxima with validity masks: proposals,
 class-wise NMS and detections are batched over the images, and ROIAlign
-pools one image at a time (the JAX package's per-image `lax.map` body; its
-"scan" and "unroll" predict modes give identical outputs, so this one loop
-serves both).  The heads run once on the batch folded into the leading axis.
-Submodule names follow the flax parameter tree.
+pools every image's boxes in one call (`ops/roi_align.py:roi_align_pyramid`:
+one kernel launch on the card, the plain per-image loop on the CPU; the JAX
+package's "scan" and "unroll" predict modes give identical outputs, so this
+one path serves both).  The heads run once on the batch folded into the
+leading axis.  Submodule names follow the flax parameter tree.
 
 Training (`train_losses`): anchor labelling and sampled RPN losses,
 proposals at the train top-k from stop-gradiented RPN outputs, ROI sampling
@@ -50,8 +51,8 @@ from mot3d_tpu_torch.models.rpn import (RPNHead, decode_deltas,
 from mot3d_tpu_torch.models.voxel_head import Pix2VoxDecoder, voxel_loss
 from mot3d_tpu_torch.ops.nms import (classwise_nms_mask, gather_rows,
                                      top_k_by_score)
-from mot3d_tpu_torch.ops.roi_align import (
-    multilevel_roi_align_batched_packed, roi_align_matmul)
+from mot3d_tpu_torch.ops.roi_align import (roi_align_matmul,
+                                           roi_align_pyramid)
 from mot3d_tpu_torch.utils import trace
 
 STRIDES = (4, 8, 16, 32)          # P2..P5 (ROI pooling levels)
@@ -244,7 +245,7 @@ class MaskRCNN(nn.Module):
                               draws.roi, c)
         feats4 = feats[:4]
         rr = samples.boxes.shape[1]
-        pooled7 = multilevel_roi_align_batched_packed(
+        pooled7 = roi_align_pyramid(
             feats4, samples.boxes, c.box_pooler_resolution, STRIDES)
         pooled7 = pooled7.reshape((b * rr,) + pooled7.shape[2:])
         boxes_all = samples.boxes.reshape(b * rr, 4)
@@ -288,7 +289,7 @@ class MaskRCNN(nn.Module):
                                    dim=1, stable=True)[:, :k_im]
         fg_boxes_im = gather_rows(samples.boxes, fg_rank_im)   # (B, K, 4)
         fg_matched_im = torch.gather(samples.matched_gt, 1, fg_rank_im)
-        pooled14 = multilevel_roi_align_batched_packed(
+        pooled14 = roi_align_pyramid(
             feats4, fg_boxes_im, c.mask_pooler_resolution, STRIDES)
         pooled14 = pooled14.reshape((b * k_im,) + pooled14.shape[2:])
         fg_is_pos = torch.gather(samples.is_pos, 1, fg_rank_im).reshape(-1)
@@ -391,7 +392,7 @@ class MaskRCNN(nn.Module):
                 (c.pad_height, c.pad_width), c.rpn_pre_nms_topk_test,
                 c.rpn_post_nms_topk_test, c.rpn_nms_thresh, not c.fast_nms)
         with trace.span("detect.box"):
-            pooled7 = multilevel_roi_align_batched_packed(
+            pooled7 = roi_align_pyramid(
                 feats4, pb, c.box_pooler_resolution, STRIDES)
             p = pb.shape[1]
             cc = c.num_classes
@@ -418,7 +419,7 @@ class MaskRCNN(nn.Module):
                                      torch.zeros_like(ok, dtype=probs.dtype))
             det_cls = flat_cls[idx]
         with trace.span("detect.heads"):
-            pooled14 = multilevel_roi_align_batched_packed(
+            pooled14 = roi_align_pyramid(
                 feats4, det_boxes, c.mask_pooler_resolution, STRIDES)
             d = det_boxes.shape[1]
             masks, voxels, nocs = self.dense_heads(
@@ -438,7 +439,7 @@ class MaskRCNN(nn.Module):
         (masks, voxels, nocs) with leading (B, D)."""
         feats = self.features(images)
         b, d = boxes.shape[:2]
-        pooled14 = multilevel_roi_align_batched_packed(
+        pooled14 = roi_align_pyramid(
             feats[:4], boxes, self.cfg.mask_pooler_resolution, STRIDES)
         outs = self.dense_heads(
             pooled14.reshape((b * d,) + pooled14.shape[2:]),

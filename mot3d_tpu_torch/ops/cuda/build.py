@@ -23,7 +23,7 @@ from pathlib import Path
 
 from mot3d_tpu_torch.utils.native import locked_build, run_all, source_key
 
-SOURCES = ("knn_outlier.cu", "pose_extract.cu", "nms.cu")
+SOURCES = ("knn_outlier.cu", "pose_extract.cu", "nms.cu", "roi_align.cu")
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libmot3d_kernels.so"
@@ -102,6 +102,14 @@ def library() -> ctypes.CDLL:
                                    ctypes.POINTER(ctypes.c_longlong), i, f,
                                    p, ctypes.POINTER(ctypes.c_int)]
     lib.mot3d_nms_mask.restype = i
+    pp, pi = ctypes.POINTER(p), ctypes.POINTER(i)
+    pf = ctypes.POINTER(f)
+    lib.mot3d_roi_align_forward.argtypes = [pp, pi, pi, pf, i, i, p, p, p,
+                                            i, i, i, i, i, p]
+    lib.mot3d_roi_align_forward.restype = i
+    lib.mot3d_roi_align_backward.argtypes = [pp, pp, pi, pi, pf, i, i, p, p,
+                                             p, p, i, i, i, i, i, p]
+    lib.mot3d_roi_align_backward.restype = i
     return lib
 
 

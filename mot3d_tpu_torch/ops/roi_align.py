@@ -12,6 +12,11 @@ axis, so each box's pooled patch is Ry (out, H) @ F (H, W, C) @ Rx^T
 (levels stacked along y, x zero-padded) and each box's weights are built
 against the packed axes at its own level's offset, so one einsum pair pools
 and level-selects every box.
+
+The detector pools with `roi_align_pyramid`: a CUDA tensor goes through the
+gather kernel (`ops/cuda/roi_align.py`: every frame's boxes in one launch,
+by bilinear taps), a CPU tensor through `multilevel_roi_align_batched_packed`,
+the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from mot3d_tpu_torch.ops.cuda import roi_align as gather
 
 
 def _bilinear_weights(coord: torch.Tensor, size):
@@ -158,3 +165,63 @@ def multilevel_roi_align_batched_packed(features: Sequence[torch.Tensor],
                                     output_size, strides, min_level,
                                     sampling_ratio)
         for i in range(boxes.shape[0])])
+
+
+def roi_align_pyramid(maps: Sequence[torch.Tensor], boxes: torch.Tensor,
+                      output_size: int, strides: Sequence[int],
+                      min_level: int = 2, sampling_ratio: int = 2
+                      ) -> torch.Tensor:
+    """maps (B, C, H_l, W_l) finest first, boxes (B, N, 4) XYXY in image
+    coordinates -> (B, N, out, out, C), each frame's boxes pooled from its
+    own pyramid: `multilevel_roi_align_batched_packed` on CPU tensors, the
+    gather kernel otherwise (one forward launch a call, differentiable in
+    the maps and the boxes; it raises on what it does not take)."""
+    if boxes.device.type == "cpu":
+        return multilevel_roi_align_batched_packed(
+            maps, boxes, output_size, strides, min_level, sampling_ratio)
+    return RoiAlignPyramid.apply(boxes.contiguous(), output_size,
+                                 tuple(strides), min_level, sampling_ratio,
+                                 *maps)
+
+
+class RoiAlignPyramid(torch.autograd.Function):
+    """`roi_align_pyramid` with the gradient of the boxes and the maps: the
+    gather kernels for CUDA tensors; for CPU tensors the plain version, and
+    its gradient by autograd."""
+
+    @staticmethod
+    def forward(ctx, boxes, output_size, strides, min_level, sampling_ratio,
+                *maps):
+        ctx.args = (output_size, strides, min_level, sampling_ratio)
+        if boxes.device.type == "cpu":
+            ctx.save_for_backward(boxes, None, *maps)
+            return multilevel_roi_align_batched_packed(list(maps), boxes,
+                                                       *ctx.args)
+        level = assign_fpn_level(boxes, min_level,
+                                 min_level + len(maps) - 1)
+        out, maps = gather.forward(maps, boxes, level, *ctx.args)
+        ctx.save_for_backward(boxes, level, *maps)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, level, *maps = ctx.saved_tensors
+        need_boxes = ctx.needs_input_grad[0]
+        need_maps = any(ctx.needs_input_grad[5:])
+        if level is not None:
+            gmaps, gboxes = gather.backward(maps, boxes, level,
+                                            grad.contiguous(), need_maps,
+                                            need_boxes, *ctx.args)
+        else:
+            with torch.enable_grad():
+                m = [x.detach().requires_grad_(need_maps) for x in maps]
+                b = boxes.detach().requires_grad_(need_boxes)
+                wrt = ([b] if need_boxes else []) + (m if need_maps else [])
+                got = list(torch.autograd.grad(
+                    multilevel_roi_align_batched_packed(m, b, *ctx.args),
+                    wrt, grad, allow_unused=True))
+            gboxes = got.pop(0) if need_boxes else None
+            gmaps = got
+        if not need_maps:
+            gmaps = [None] * len(maps)
+        return (gboxes, None, None, None, None, *gmaps)

@@ -164,6 +164,134 @@ def test_knn_outlier_kernel_matches_plain_at_training_shapes():
     assert torch.equal(got, k1.knn_mean_dists_plain(pts, valid, cols, k))
 
 
+def _roi_inputs(seed, b, n, dev, c=256):
+    from torch_port_helpers import roi_case
+
+    maps, boxes = roi_case(seed, b, n, c)
+    return ([torch.from_numpy(m).to(dev) for m in maps],
+            torch.from_numpy(boxes).to(dev))
+
+
+def _roi_check(maps, boxes, out, seed):
+    """The kernels against the plain version on the card: the forward
+    within 1e-5 (the same weights from the same expressions, -fmad=false;
+    only the order of a bin's at most 16 non-zero products differs from
+    cuBLAS's, on unit-normal maps), one launch; the backward against
+    autograd of the plain version, one launch, grad_maps within 1e-5 and
+    grad_boxes within 1e-4 of their largest value (a map cell adds the
+    contributions of every bin that reads it, by atomicAdd in any order,
+    cuBLAS in its own; a box coordinate's gradient is a difference of two
+    such sums over 49 or 196 bins and 256 channels)."""
+    from mot3d_tpu_torch.ops.cuda import roi_align as ra
+    from mot3d_tpu_torch.ops.roi_align import \
+        multilevel_roi_align_batched_packed as plain
+    from mot3d_tpu_torch.ops.roi_align import roi_align_pyramid
+    from torch_port_helpers import ROI_STRIDES
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m_ref = [m.clone().requires_grad_() for m in maps]
+        b_ref = boxes.clone().requires_grad_()
+        want = plain(m_ref, b_ref, out, ROI_STRIDES)
+        grad = torch.randn(want.shape, device=want.device,
+                           generator=torch.Generator(want.device)
+                           .manual_seed(seed))
+        (want * grad).sum().backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    m_k = [m.clone().requires_grad_() for m in maps]
+    b_k = boxes.clone().requires_grad_()
+    before, before_b = ra.launches.count, ra.backward_launches.count
+    got = roi_align_pyramid(m_k, b_k, out, ROI_STRIDES)
+    assert ra.launches.count == before + 1
+    err = float((got - want).abs().max())
+    assert err <= 1e-5, err
+    (got * grad).sum().backward()
+    assert ra.backward_launches.count == before_b + 1
+    for k, r in zip(m_k, m_ref):
+        e = float((k.grad - r.grad).abs().max())
+        assert e <= 1e-5 * float(r.grad.abs().max()), e
+    e = float((b_k.grad - b_ref.grad).abs().max())
+    assert e <= 1e-4 * float(b_ref.grad.abs().max()), e
+
+
+@pytest.mark.parametrize("b,n,out", [(25, 500, 7), (25, 16, 14),
+                                     (2, 512, 7), (2, 128, 14)])
+def test_roi_align_kernel_matches_plain_at_path_shapes(b, n, out):
+    """Serving's box and mask poolers (25 frames x 500 proposals at 7 x 7,
+    x 16 detections at 14 x 14) and training's (2 x 512, 2 x 128) on
+    256 x 320 frames, 256 channels; each frame's first rows are the edge
+    boxes of `roi_edge_boxes`."""
+    dev = _cuda()
+    maps, boxes = _roi_inputs(b * n + out, b, n, dev)
+    _roi_check(maps, boxes, out, seed=out)
+
+
+@pytest.mark.parametrize("out", [7, 14])
+def test_roi_align_kernel_on_edge_boxes(out):
+    """Only edge boxes: padded rows, degenerate boxes, boxes partly or
+    wholly off the map, integral sample positions and squares within 3
+    ulps of the level boundaries 112, 224 and 448, in 3 frames."""
+    from torch_port_helpers import roi_edge_boxes
+
+    dev = _cuda()
+    edge = torch.from_numpy(roi_edge_boxes()).to(dev)
+    maps, _ = _roi_inputs(out, 3, len(edge), dev)
+    _roi_check(maps, torch.stack([edge, edge.flip(0), edge]), out, seed=1)
+
+
+@pytest.mark.parametrize("need", ["maps", "boxes"])
+def test_roi_align_kernel_gradient_of_one_input(need):
+    """The backward with only the maps (training) or only the boxes asking
+    for a gradient: the other gets none, the asked one autograd's of the
+    plain version (tolerances as in `_roi_check`)."""
+    from mot3d_tpu_torch.ops.roi_align import \
+        multilevel_roi_align_batched_packed as plain
+    from mot3d_tpu_torch.ops.roi_align import roi_align_pyramid
+    from torch_port_helpers import ROI_STRIDES
+
+    dev = _cuda()
+    maps, boxes = _roi_inputs(5, 2, 64, dev)
+    grad = torch.randn((2, 64, 7, 7, 256), device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        results = []
+        for fn in (plain, roi_align_pyramid):
+            m = [x.clone().requires_grad_(need == "maps") for x in maps]
+            b = boxes.clone().requires_grad_(need == "boxes")
+            (fn(m, b, 7, ROI_STRIDES) * grad).sum().backward()
+            results.append([x.grad for x in m] + [b.grad])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    want, got = results
+    rel = 1e-5 if need == "maps" else 1e-4
+    for w, g in zip(want, got):
+        assert (w is None) == (g is None)
+        if w is not None:
+            assert float((g - w).abs().max()) <= rel * float(w.abs().max())
+
+
+def test_detector_pools_with_one_launch_per_pooler():
+    """`predict` on the card: the box and the mask pooler each pool every
+    frame's boxes in one launch, and nothing else runs the plain version."""
+    from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
+    from mot3d_tpu_torch.ops.cuda import roi_align as ra
+
+    dev = _cuda()
+    cfg = _tiny_office_cfg().detection
+    torch.manual_seed(0)
+    det = MaskRCNN(cfg, device=dev)
+    img = torch.rand(3, cfg.pad_height, cfg.pad_width, 3,
+                     generator=torch.Generator().manual_seed(1)).to(dev) * 255
+    before = ra.launches.count
+    dets = det.predict(img)
+    assert ra.launches.count == before + 2
+    assert bool(torch.isfinite(dets.masks).all())
+
+
 def test_pose_extract_backward_raises_on_the_card():
     """K2 writes through raw pointers: its autograd function refuses a
     gradient instead of returning a silent zero."""

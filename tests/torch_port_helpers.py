@@ -302,6 +302,49 @@ COMBINED_MODES = {"joint": {}, "accum_windows": {"accum_windows": True},
                   "two_backward": {"joint_grad": False}}
 
 
+ROI_STRIDES = (4, 8, 16, 32)
+
+
+def _ulps(x: float, k: int) -> np.float32:
+    """x moved by k float32 ulps (down for k < 0)."""
+    v = np.float32(x)
+    for _ in range(abs(k)):
+        v = np.nextafter(v, np.float32(np.inf if k > 0 else -np.inf))
+    return v
+
+
+def roi_edge_boxes() -> np.ndarray:
+    """(E, 4) float32 XYXY boxes for ROIAlign's edges: a padded (all-zero)
+    row, degenerate boxes (x1 < x0, zero width, a point), boxes wholly and
+    partly off the map, integral sample positions, and squares whose
+    sqrt(area) lies within 3 ulps of the level boundaries 112, 224 and
+    448."""
+    rows = [[0, 0, 0, 0], [30, 20, 10, 60], [40, 10, 40, 90],
+            [50, 50, 50, 50], [400, 300, 520, 420], [-90, -60, -10, -5],
+            [-30, -20, 60, 50], [250, 200, 400, 300], [0, 0, 8, 8],
+            [4, 12, 36, 44]]
+    for side in (112.0, 224.0, 448.0):
+        rows += [[0, 0, _ulps(side, k), _ulps(side, k)]
+                 for k in (-3, -1, 0, 1, 3)]
+    return np.asarray(rows, np.float32)
+
+
+def roi_case(seed: int, b: int, n: int, c: int, hw=(256, 320)):
+    """FPN maps (B, C, H / s, W / s) for s in ROI_STRIDES, normal float32,
+    and boxes (B, N, 4): each frame's first rows are `roi_edge_boxes`
+    (as many as fit), the rest log-uniform 4-400 px across every level,
+    centred anywhere on the image and a little beyond."""
+    rng = np.random.default_rng(seed)
+    maps = [rng.normal(size=(b, c, hw[0] // s, hw[1] // s)).astype(np.float32)
+            for s in ROI_STRIDES]
+    ctr = rng.uniform([-8, -8], [hw[1] + 8, hw[0] + 8], size=(b, n, 2))
+    wh = np.exp(rng.uniform(np.log(4), np.log(400), size=(b, n, 2)))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    edge = roi_edge_boxes()[:n]
+    boxes[:, :len(edge)] = edge
+    return maps, boxes.astype(np.float32)
+
+
 def start_ranks(work: Path, inputs: dict, nproc: int = 2,
                 device: str = "cpu"):
     """Write `inputs` to work/inputs.pt and start `nproc` ranks of

@@ -1,21 +1,25 @@
 """What every cell of the benchmark shares: the specs it finds by name, the
-configurations as run, the weights it makes from the seed, the card's
-identity and the result line.
+configurations as run, the plain reference each names, the weights it
+makes from the seed, the card's identity and the result line.
 
 The specs are files found by the names in `BENCHMARK.json`: a
 configuration's `file`, `traffic/<traffic>.json` and
 `workloads/<cell>.json`; a per-layer metric's reader is
-`metrics/<metric>.py` (`readers`)."""
+`metrics/<metric>.py` (`readers`); a configuration's reference is the
+modules its file names under `"reference"` (`reference_modules`)."""
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import fnmatch
 import importlib.util
 import json
 import math
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -84,35 +88,74 @@ def readers(metrics: list, directory) -> dict:
 
 # ----------------------------------------------------------- configuration
 
-def config_from_dict(cls, data: dict):
-    """A `Config` (the program's or the reference's class) holding the
-    sections and fields of `data`, lists as tuples; every field must be
-    given."""
-    sections = {}
+def _parse(cls, data: dict, strict: bool) -> tuple:
+    """(config, omitted): a `Config` of class `cls` holding the sections and
+    fields of `data`, lists as tuples, and the dotted names of the fields
+    `data` omits, which take the class's defaults, or are refused where
+    `strict`.  Unknown sections and fields are refused."""
+    default = cls()
+    unknown = sorted(set(data) - {f.name for f in dataclasses.fields(cls)})
+    if unknown:
+        raise BenchError(f"unknown sections: {unknown}")
+    sections, omitted = {}, []
     for f in dataclasses.fields(cls):
-        sec_cls = type(getattr(cls(), f.name))
-        given = data[f.name]
-        vals = {}
-        for g in dataclasses.fields(sec_cls):
-            v = given[g.name]
-            vals[g.name] = tuple(v) if isinstance(v, list) else v
-        if set(given) - set(vals):
+        section = getattr(default, f.name)
+        given = data.get(f.name, {})
+        names = [g.name for g in dataclasses.fields(section)]
+        if set(given) - set(names):
             raise BenchError(f"unknown fields in section {f.name}: "
-                             f"{sorted(set(given) - set(vals))}")
-        sections[f.name] = sec_cls(**vals)
-    return cls(**sections)
+                             f"{sorted(set(given) - set(names))}")
+        omitted += [f"{f.name}.{n}" for n in names if n not in given]
+        sections[f.name] = dataclasses.replace(section, **{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in given.items()})
+    if strict and omitted:
+        raise BenchError(f"fields missing: {omitted}")
+    return cls(**sections), omitted
+
+
+def config_from_dict(cls, data: dict):
+    """A `Config` of class `cls` (a reference's) holding the sections and
+    fields of `data`, lists as tuples; every field must be given."""
+    return _parse(cls, data, strict=True)[0]
+
+
+def program_config(data: dict, say: bool = False):
+    """The program's `Config` of a configuration file's `config`.  Fields
+    the file omits (ones the program gained after the file was written)
+    take the program's defaults and, where `say`, are named on standard
+    error; unknown fields are refused."""
+    from mot3d_tpu_torch.config import Config
+    cfg, omitted = _parse(Config, data, strict=False)
+    if say and omitted:
+        print(f"benchmark: the configuration omits {len(omitted)} fields of "
+              f"the program's Config, which take its defaults: "
+              f"{', '.join(omitted)}", file=sys.stderr)
+    return cfg
 
 
 # ----------------------------------------------------------------- weights
 
+# Module classes, by name, whose scales make_weights sets to 1, biases to 0.
+UNIT_NORMS = ("GroupNorm", "LayerNorm")
+
+
 def make_weights(model, seed: int, weights: dict, device) -> dict:
     """The state_dict of `model` (the reference's module structure: its
-    keys and shapes) made on `device` from `seed` in two large draws.
+    keys and shapes) made on `device` from `seed` in two large draws, a
+    uniform and a normal one; each parameter reads both at its own offset
+    in `named_parameters` order, whichever rule it takes.
 
-    Convolution, transposed-convolution and linear weights and their
-    biases are uniform in +-1/sqrt(fan_in), torch's default; GroupNorm
-    scales 1 and biases 0; frozen-affine norm scales `affine_scale` +
-    `affine_jitter` * N(0, 1) and biases `affine_bias` * N(0, 1); each
+    A parameter whose name matches a pattern of `weights["normal"]`
+    (fnmatch pattern -> std, the first that matches) is std * N(0, 1).
+    Otherwise the scales of a module whose class is named in `UNIT_NORMS`
+    (torch's and a reference's own channel LayerNorm alike) are 1 and their
+    biases 0; frozen-affine
+    norm scales `affine_scale` + `affine_jitter` * N(0, 1) and biases
+    `affine_bias` * N(0, 1); every other parameter (convolution,
+    transposed-convolution and linear weights and their biases) uniform in
+    +-1/sqrt(fan_in) of its module's weight, torch's default, and refused
+    where that module has no weight of two or more dimensions.  Last, each
     entry of `weights["set"]` is filled with its value."""
     import torch
     from torch import nn
@@ -129,43 +172,173 @@ def make_weights(model, seed: int, weights: dict, device) -> dict:
             fan_in = w.shape[1] * math.prod(w.shape[2:])
             fan[mname] = fan_in
     kind = {mname: type(mod).__name__ for mname, mod in model.named_modules()}
+    normal = weights.get("normal", {})
     out, at = {}, 0
     for name, p in params:
         n = p.numel()
         mname, _, leaf = name.rpartition(".")
         u, z = uni[at:at + n].view(p.shape), nrm[at:at + n].view(p.shape)
         at += n
-        if kind[mname] == "GroupNorm":
+        std = next((s for pattern, s in normal.items()
+                    if fnmatch.fnmatchcase(name, pattern)), None)
+        if std is not None:
+            val = float(std) * z
+        elif kind[mname] in UNIT_NORMS:
             val = torch.ones_like(u) if leaf == "weight" else \
                 torch.zeros_like(u)
         elif kind[mname] == "AffineChannelNorm":
             val = (weights["affine_scale"] + weights["affine_jitter"] * z
                    if leaf == "weight" else weights["affine_bias"] * z)
-        else:
+        elif mname in fan:
             val = u / math.sqrt(fan[mname])
+        else:
+            raise BenchError(
+                f"no weight rule for parameter {name!r} ({kind[mname]}): "
+                f"its module has no weight to give a fan-in; list a pattern "
+                f"under weights.<model>.normal")
         out[name] = val.float().contiguous()
     for name, value in weights.get("set", {}).items():
         out[name] = torch.full_like(out[name], float(value))
     return out
 
 
-def reference_models(cfg_ref, device):
-    """The reference's detector and tracker (random-initialised; load the
+# --------------------------------------------------------------- reference
+
+# The plain reference a configuration runs by, where its file's
+# `"reference"` names no other: role -> a dotted module under `benchmark.`.
+REFERENCE = {"config": "benchmark.reference.config",
+             "detector": "benchmark.reference.models.mask_rcnn",
+             "tracker": "benchmark.reference.models.mpn"}
+# What the harness takes from each role's module, and from the detector.
+REFERENCE_NAMES = {"config": ("Config",),
+                   "detector": ("MaskRCNN", "DetectionDraws", "GroundTruth"),
+                   "tracker": ("TrackerModel",)}
+DETECTOR_METHODS = ("predict", "num_proposals_train", "train_losses")
+
+
+# Whole top-level names that no module of a plain reference may import.
+NOT_IN_REFERENCE = ("mot3d_tpu_torch", *FORBIDDEN)
+
+
+def _imported(path: Path, package: str) -> set:
+    """The dotted names a source file imports anywhere in it: `a.b` of
+    `import a.b`; `a.b` and `a.b.c` of `from a.b import c`, a relative
+    one resolved against `package`."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = importlib.util.resolve_name(
+                "." * node.level + (node.module or ""), package) \
+                if node.level else node.module
+            names |= {base, *(f"{base}.{a.name}" for a in node.names)}
+    return names
+
+
+def reference_sources(modules) -> dict:
+    """path -> the dotted names it imports, for the source of each of
+    `modules` and of every module under `benchmark.` that they import, at
+    any depth.  Found without running them: only their packages are
+    imported."""
+    out, seen, todo = {}, set(), list(modules)
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        parent = name.rpartition(".")[0]
+        try:
+            if parent:
+                pspec = importlib.util.find_spec(parent)
+                if pspec is None or pspec.submodule_search_locations is None:
+                    continue    # `c` of `from a.b import c`: no module
+            spec = importlib.util.find_spec(name)
+        except (ImportError, ValueError):
+            continue
+        if spec is None or not (spec.origin or "").endswith(".py"):
+            continue
+        package = name if spec.submodule_search_locations is not None \
+            else parent
+        out[Path(spec.origin)] = imported = _imported(Path(spec.origin),
+                                                      package)
+        todo += sorted(n for n in imported if n.split(".")[0] == "benchmark")
+    return out
+
+
+def reference_modules(conf: dict) -> types.SimpleNamespace:
+    """The modules of a configuration's plain reference, imported: its
+    file's `"reference"` over `REFERENCE`.  `proposals` is the module that
+    defines the detector's `train_losses`, whose module-level
+    `select_proposals` the training check swaps.  Refuses an unknown role,
+    a module outside `benchmark.`, a reference that imports the program
+    or JAX (itself or through a module under `benchmark.`, at any depth),
+    and modules that lack what the harness takes from them, naming
+    everything at fault."""
+    given = conf.get("reference", {})
+    if set(given) - set(REFERENCE):
+        raise BenchError(f"unknown reference roles: "
+                         f"{sorted(set(given) - set(REFERENCE))}")
+    names = {**REFERENCE, **given}
+    outside = sorted(m for m in names.values()
+                     if not m.startswith("benchmark."))
+    if outside:
+        raise BenchError(f"reference modules outside benchmark.: {outside}")
+    banned = {str(path): sorted(n for n in imported
+                                if n.split(".")[0] in NOT_IN_REFERENCE)
+              for path, imported in reference_sources(names.values()).items()}
+    banned = {path: found for path, found in banned.items() if found}
+    if banned:
+        raise BenchError(f"the reference imports the program or JAX: "
+                         f"{banned}")
+    try:
+        mods = {role: importlib.import_module(m) for role, m in names.items()}
+    except ImportError as e:
+        raise BenchError(f"a reference module does not import: {e}")
+    missing = [f"{names[role]}.{a}" for role, attrs in REFERENCE_NAMES.items()
+               for a in attrs if not hasattr(mods[role], a)]
+    proposals = None
+    det = getattr(mods["detector"], "MaskRCNN", None)
+    if det is not None:
+        missing += [f"{names['detector']}.MaskRCNN.{m}"
+                    for m in DETECTOR_METHODS
+                    if not callable(getattr(det, m, None))]
+        if callable(getattr(det, "train_losses", None)):
+            proposals = sys.modules[det.train_losses.__module__]
+            if not hasattr(proposals, "select_proposals"):
+                missing.append(f"{proposals.__name__}.select_proposals (the "
+                               f"module that defines MaskRCNN.train_losses)")
+    if missing:
+        raise BenchError(f"the reference lacks what the harness uses: "
+                         f"{missing}")
+    return types.SimpleNamespace(**mods, proposals=proposals)
+
+
+def reference_models(conf: dict, device) -> tuple:
+    """(refs, cfg, detector, tracker): a configuration's reference modules
+    (`reference_modules`), its reference `Config`, and its
+    random-initialised detector and tracker on `device` (load the
     benchmark's weights into them)."""
-    from benchmark.reference.models.mask_rcnn import MaskRCNN
-    from benchmark.reference.models.mpn import TrackerModel
-    return (MaskRCNN(cfg_ref.detection, device=device),
-            TrackerModel(cfg_ref.graph, device=device))
+    refs = reference_modules(conf)
+    cfg = config_from_dict(refs.config.Config, conf["config"])
+    det = refs.detector.MaskRCNN(cfg.detection, device=device)
+    if not hasattr(det, "anchors"):
+        raise BenchError(f"the reference lacks what the harness uses: "
+                         f"{refs.detector.__name__}.MaskRCNN().anchors")
+    return refs, cfg, det, refs.tracker.TrackerModel(cfg.graph, device=device)
+
+
+def meta_models(conf: dict) -> tuple:
+    """`reference_models` on the meta device: shapes, no data."""
+    import torch
+    with torch.device("meta"):
+        return reference_models(conf, "meta")
 
 
 def model_weights(conf: dict, seed: int, device):
     """(detector, tracker) state_dicts of a configuration from `seed`, made
-    on the structure of the reference's models built on the meta device."""
-    import torch
-    from benchmark.reference.config import Config as RefConfig
-    cfg = config_from_dict(RefConfig, conf["config"])
-    with torch.device("meta"):
-        det, trk = reference_models(cfg, "meta")
+    on the structure of its reference's models."""
+    _, _, det, trk = meta_models(conf)
     w = conf["weights"]
     return (make_weights(det, seed, w["detector"], device),
             make_weights(trk, seed + 1, w["tracker"], device))

@@ -132,15 +132,14 @@ def track_readings(out: dict, ref_probs, ref_ids) -> dict:
 
 
 class Reference:
-    """The reference's detector, tracker and graph template on `device`,
-    with the seed's weights."""
+    """The configuration's reference detector, tracker and graph template
+    on `device`, with the seed's weights."""
 
     def __init__(self, conf: dict, seed: int, device):
         from benchmark import common
-        from benchmark.reference.config import Config
         from benchmark.reference.tracking.graph_builder import make_template
-        self.cfg = cfg = common.config_from_dict(Config, conf["config"])
-        self.det, self.trk = common.reference_models(cfg, device)
+        _, cfg, self.det, self.trk = common.reference_models(conf, device)
+        self.cfg = cfg
         w_det, w_trk = common.model_weights(conf, seed, device)
         self.det.load_state_dict(w_det)
         self.trk.load_state_dict(w_trk)

@@ -1,7 +1,8 @@
 """The yardstick's arithmetic: the model's FLOPs per served sequence and
-per training step, counted from the plain reference's layer shapes on the
-meta device (no data, no device), and the operations and bytes the K1 and
-K3 kernels' work needs, from the shapes and validity of their inputs.
+per training step, counted from the layer shapes of the configuration's
+plain reference on the meta device (no data, no device), and the
+operations and bytes the K1 and K3 kernels' work needs, from the shapes
+and validity of their inputs.
 
 The FLOP counts are frozen in each configuration's file (`flops`); a CPU
 test recomputes them here.  A kernel's operations and bytes are counted
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.common import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, config_from_dict
+from benchmark.common import PEAK_FP32_FLOPS, PEAK_HBM_BYTES, meta_models
 
 # K1: d2 takes 8 fp32 operations (3 multiplies and 2 adds for p.q, the
 # norms' sum and the clamp), keeping the k smallest about 2 more per pair
@@ -42,22 +43,12 @@ def _flop_count(fn) -> int:
     return int(fc.get_total_flops())
 
 
-def _meta_models(conf: dict):
-    from benchmark.reference.config import Config
-    from benchmark.reference.models.mask_rcnn import MaskRCNN
-    from benchmark.reference.models.mpn import TrackerModel
-    cfg = config_from_dict(Config, conf["config"])
-    with torch.device("meta"):
-        return cfg, MaskRCNN(cfg.detection, device="meta"), \
-            TrackerModel(cfg.graph, device="meta")
-
-
 def serve_flops(conf: dict) -> int:
     """FLOPs of one served sequence: the detector's predict over its T
     frames and the tracker over its graph (every node and edge slot, as
     the padded graph computes them)."""
     from benchmark.reference.tracking.graph_builder import make_template
-    cfg, det, trk = _meta_models(conf)
+    _, cfg, det, trk = meta_models(conf)
     d, t = cfg.detection, cfg.tracking.seq_len
     det.eval()
     trk.eval()
@@ -82,18 +73,18 @@ def serve_flops(conf: dict) -> int:
 def train_flops(conf: dict, batch: int) -> int:
     """FLOPs of one detection training step on `batch` frames: the
     training forward and its backward."""
-    from benchmark.reference.models.mask_rcnn import DetectionDraws, GroundTruth
-    cfg, det, _ = _meta_models(conf)
+    refs, cfg, det, _ = meta_models(conf)
     d = cfg.detection
     m, h, w = d.max_instances, d.pad_height, d.pad_width
     z = dict(device="meta")
-    gt = GroundTruth(torch.zeros((batch, m, 4), **z),
-                     torch.zeros((batch, m), dtype=torch.int64, **z),
-                     torch.ones((batch, m), dtype=torch.bool, **z),
-                     torch.zeros((batch, m, h, w), **z),
-                     torch.zeros((batch, m, 32, 32, 32), **z),
-                     torch.zeros((batch, m, 28, 28, 3), **z))
-    draws = DetectionDraws(
+    gt = refs.detector.GroundTruth(
+        torch.zeros((batch, m, 4), **z),
+        torch.zeros((batch, m), dtype=torch.int64, **z),
+        torch.ones((batch, m), dtype=torch.bool, **z),
+        torch.zeros((batch, m, h, w), **z),
+        torch.zeros((batch, m, 32, 32, 32), **z),
+        torch.zeros((batch, m, 28, 28, 3), **z))
+    draws = refs.detector.DetectionDraws(
         torch.zeros((batch, det.anchors.shape[0]), **z),
         torch.zeros((batch, det.num_proposals_train() + m), **z))
     images = torch.zeros((batch, h, w, 3), **z)

@@ -136,6 +136,7 @@ def main(argv=None) -> int:
         except ImportError as e:
             raise common.BenchError(f"the program is not here: {e}")
         build()      # nvcc once, before the clients start
+        common.program_config(c["config"]["config"], say=True)
         ident = common.card_identity()
         if c["traffic"]["kind"] == "sequences":
             from benchmark import serve

@@ -95,14 +95,13 @@ def client_main(conn, client: int, c: dict, seed: int, trace: bool,
 def make_step(c: dict, seed: int, dev):
     """The program's serving step on the cell's configuration, with the
     seed's weights."""
-    from mot3d_tpu_torch.config import Config
     from mot3d_tpu_torch.models.mask_rcnn import MaskRCNN
     from mot3d_tpu_torch.models.mpn import TrackerModel
     from mot3d_tpu_torch.parallel.infer_step import make_sequence_infer_step
     from mot3d_tpu_torch.tracking.graph_builder import make_template
 
     conf = c["config"]
-    cfg = common.config_from_dict(Config, conf["config"])
+    cfg = common.program_config(conf["config"])
     det = MaskRCNN(cfg.detection, device=dev)
     trk = TrackerModel(cfg.graph, device=dev)
     w_det, w_trk = common.model_weights(conf, seed, dev)

@@ -69,6 +69,107 @@ def test_bench_new_cell_config_and_metric_are_found_from_files(tmp_path):
     assert {k: after[k] for k in before} == before
 
 
+TOY_RUN = """
+import json, sys
+from pathlib import Path
+root = Path({root!r})
+sys.path.insert(0, str(root))
+import torch
+from benchmark import common, compare, counts
+from benchmark.reference import steps
+from benchmark.tests.tiny import tiny_config
+
+c = common.cell("serve.toy.c4", root=root)
+conf = c["config"]
+refs, cfg, det, _ = common.meta_models(conf)
+w_det, _ = common.model_weights(conf, {seed}, "cpu")
+gen = torch.Generator().manual_seed({seed})
+n = sum(p.numel() for p in det.parameters())
+torch.rand(n, generator=gen)
+nrm = torch.randn(n, generator=gen)
+ref = compare.Reference(conf, {seed}, "cpu")
+images = torch.rand((2, 64, 64, 3), generator=gen) * 255
+out = steps.detect(ref.det, images, "cpu")
+base = tiny_config("r50fpn-gn")
+print(json.dumps({{
+    "files": [m.__file__ for m in (refs.config, refs.detector, refs.tracker,
+                                   common, sys.modules[type(det).__module__])],
+    "detector": type(ref.det).__module__ + "." + type(ref.det).__name__,
+    "eps": [cfg.detection.feature_norm_eps, ref.det.feature_norm.eps],
+    "norm": [w_det["feature_norm.weight"].tolist(),
+             w_det["feature_norm.bias"].tolist()],
+    "mix_gap": float((w_det["feature_mix"]
+                      - 0.02 * nrm[:64 * 64].view(64, 64)).abs().max()),
+    "serve": [counts.serve_flops(conf), counts.serve_flops(base)],
+    "train": [counts.train_flops(conf, 2), counts.train_flops(base, 2)],
+    "boxes": list(out.boxes.shape)}}))
+"""
+
+
+def test_bench_new_architecture_is_added_by_new_files_only(tmp_path):
+    """A configuration whose model differs in structure: its own reference
+    `Config` (one more detection field), its own detector module (a
+    LayerNorm and a bare parameter the reference lacks) and their weight
+    rules, brought as new files and entries on a copy of the benchmark.
+    In a process that imports the harness from that copy, the cell, the
+    reference modules, the weights, the FLOP counts and the reference's
+    forward all take them; no file the copy had is edited."""
+    from benchmark.tests.tiny import tiny_config
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", "toyref"))
+    before = _tree_hashes(tmp_path / "benchmark")
+
+    shutil.copytree(BENCH / "tests" / "toyref",
+                    tmp_path / "benchmark/tests/toyref",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    conf = tiny_config("r50fpn-gn")
+    conf.pop("flops")
+    conf["name"] = "toy-ln"
+    conf["reference"] = {"config": "benchmark.tests.toyref.config",
+                         "detector": "benchmark.tests.toyref.detector"}
+    conf["config"]["detection"]["feature_norm_eps"] = 1e-5
+    conf["weights"]["detector"]["normal"] = {"feature_mix": 0.02}
+    (tmp_path / "benchmark/configs/toy-ln.json").write_text(json.dumps(conf))
+    shutil.copy(BENCH / "workloads/serve.gn.c4.json",
+                tmp_path / "benchmark/workloads/serve.toy.c4.json")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "toy-ln", "source": "x",
+                             "file": "benchmark/configs/toy-ln.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "serve.toy.c4", "config": "toy-ln",
+                               "traffic": "seq25.c4", "chips": 1,
+                               "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    seed = 2 ** 33 + 5
+    out = subprocess.run(
+        [sys.executable, "-c", TOY_RUN.format(root=str(tmp_path), seed=seed)],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
+        env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path),
+             "USE_FLAX": "0", "PYTHONDONTWRITEBYTECODE": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    for f in got["files"]:
+        assert Path(f).is_relative_to(tmp_path), f
+    assert got["detector"] == "benchmark.tests.toyref.detector.MaskRCNN"
+    assert got["eps"] == [1e-5, 1e-5]
+    assert got["norm"] == [[1.0] * 64, [0.0] * 64]
+    assert got["mix_gap"] == 0.0
+    # The bare 64 x 64 matrix on P2 (16 x 16 at 64 x 64) of each frame:
+    # once serving 2 frames; forward and its two gradients training 2.
+    mix = 2 * 2 * 16 * 16 * 64 * 64
+    assert got["serve"][0] - got["serve"][1] == mix
+    assert got["train"][0] - got["train"][1] == 3 * mix
+    assert got["boxes"] == [2, 4, 4]
+    after = _tree_hashes(tmp_path / "benchmark")
+    assert {k: after[k] for k in before} == before
+    assert set(after) - set(before) == {
+        "configs/toy-ln.json", "workloads/serve.toy.c4.json",
+        *(f"tests/toyref/{f.name}" for f in
+          (BENCH / "tests" / "toyref").glob("*.py"))}
+
+
 def _fake_summary():
     return {"kernels": {"knn_mean_dists_kernel<5>": [2, 1e-4],
                         "gemm": [10, 2e-3]},

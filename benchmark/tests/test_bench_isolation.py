@@ -9,7 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from benchmark.common import FORBIDDEN
+from benchmark.common import FORBIDDEN, REFERENCE, reference_sources
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -47,11 +47,31 @@ def test_bench_exercise_loads_no_jax():
     assert any(m.split(".")[0] == "mot3d_tpu_torch" for m in modules)
 
 
+def _reference_roots() -> list:
+    """The modules each configuration's reference names, the defaults
+    where it names none, and the toy reference's."""
+    confs = [json.loads(f.read_text())
+             for f in sorted((BENCH / "configs").glob("*.json"))]
+    confs.append({"reference": {
+        "config": "benchmark.tests.toyref.config",
+        "detector": "benchmark.tests.toyref.detector"}})
+    return sorted({m for c in confs
+                   for m in {**REFERENCE, **c.get("reference", {})}.values()})
+
+
 def test_bench_reference_imports_nothing_of_the_program():
-    files = sorted((BENCH / "reference").rglob("*.py"))
-    assert files
-    for f in files:
-        tops = {n.split(".")[0] for n in _imports(f)}
+    """Every file under `reference/`, and every module that a
+    configuration's reference names or reaches through modules under
+    `benchmark.` at any depth, wherever it lies."""
+    files = {f: _imports(f)
+             for f in sorted((BENCH / "reference").rglob("*.py"))}
+    reached = {Path(f).resolve(): names for f, names in
+               reference_sources(_reference_roots()).items()}
+    assert BENCH / "reference/models/resnet_fpn.py" in reached
+    assert BENCH / "tests/toyref/detector.py" in reached
+    files.update(reached)
+    for f, names in files.items():
+        tops = {n.split(".")[0] for n in names}
         assert not tops & {"mot3d_tpu_torch", *FORBIDDEN}, f
 
 

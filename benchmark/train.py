@@ -29,13 +29,7 @@ def draws_for(gen, batch: int, anchors: int, rois: int, device, cls):
 def draw_shapes(conf: dict) -> tuple:
     """(anchors, ROI candidates) per image, from the reference's detector
     built on the meta device."""
-    import torch
-
-    from benchmark.reference.config import Config
-    from benchmark.reference.models.mask_rcnn import MaskRCNN
-    cfg = common.config_from_dict(Config, conf["config"])
-    with torch.device("meta"):
-        det = MaskRCNN(cfg.detection, device="meta")
+    _, cfg, det, _ = common.meta_models(conf)
     return (det.anchors.shape[0],
             det.num_proposals_train() + cfg.detection.max_instances)
 
@@ -55,14 +49,13 @@ def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
 
     from benchmark import compare
     from benchmark import profiling as tr
-    from mot3d_tpu_torch.config import Config
     from mot3d_tpu_torch.data.detection_loader import DetectionSample
     from mot3d_tpu_torch.models import mask_rcnn as prog_rcnn
     from mot3d_tpu_torch.models.mask_rcnn import DetectionDraws
 
     conf, traf = c["config"], c["traffic"]
     data = conf["config"]
-    cfg = common.config_from_dict(Config, data)
+    cfg = common.program_config(data)
     dev = torch.device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     scratch = tempfile.mkdtemp(prefix="bench-train-")
@@ -171,15 +164,12 @@ def reference_steps(conf: dict, seed: int, host: list, draws: list,
 
     from benchmark import compare
     from benchmark.reference import steps
-    from benchmark.reference.config import Config
-    from benchmark.reference.models import mask_rcnn as ref_rcnn
 
-    cfg = common.config_from_dict(Config, conf["config"])
-    det = ref_rcnn.MaskRCNN(cfg.detection, device=dev)
+    refs, cfg, det, _ = common.reference_models(conf, dev)
     w_det, _ = common.model_weights(conf, seed, dev)
     det.load_state_dict(w_det)
     opt, sched = steps.detection_optimizer(cfg, det)
-    select = ref_rcnn.select_proposals
+    select = refs.proposals.select_proposals
     own, given = [], iter(proposals)
 
     def program_proposals(*args, **kwargs):
@@ -189,19 +179,19 @@ def reference_steps(conf: dict, seed: int, host: list, draws: list,
         if theirs is None or theirs[0].shape != mine[0].shape:
             return mine
         return theirs
-    ref_rcnn.select_proposals = program_proposals
+    refs.proposals.select_proposals = program_proposals
     out = {"losses": []}
     try:
         with steps.true_fp32():
             for k, d in enumerate(draws):
                 out["losses"].append(steps.train_step(
                     det, opt, sched, host[k],
-                    ref_rcnn.DetectionDraws(*d), dev))
+                    refs.detector.DetectionDraws(*d), dev))
                 if k == 0:
                     out["grads"] = compare.leaf_norms(
                         {n: p.grad for n, p in det.named_parameters()})
     finally:
-        ref_rcnn.select_proposals = select
+        refs.proposals.select_proposals = select
     out["changes"] = compare.changes(det, w_det)
     out["proposals"] = own
     del det, opt, w_det

@@ -5,7 +5,9 @@ cell's own sizes, in one process (no measured window):
         [--control-seeds M] [--faults F,..|all]
 
 For each seed, the program's outputs of the sequences (or first training
-steps) a run checks, judged as a run judges them; then the control on
+steps) a run checks, judged as a run judges them (a data-parallel cell's
+ranks spawned once for every seed, control and fault, the references then
+spread over the cards); then the control on
 `--control-seeds` seeds: the detector in bfloat16 (the program's own
 path, `detection.compute_dtype`), and pose and graph + MPN as the
 reference computed in TF32 put in the program's place; with `--faults`,
@@ -19,9 +21,12 @@ Not part of a run."""
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import multiprocessing as mp
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -89,6 +94,72 @@ def train_readings(c, seed, dev, plant=""):
         train.make_trainer = make
 
 
+def _check_part(conn, c, items, device):
+    """One card's share of the data-parallel references: (seed, records)
+    -> readings."""
+    try:
+        common.setup_process()
+        conn.send(("ok", _checks(c, items, device)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def _checks(c, items, device) -> list:
+    import torch
+
+    from benchmark import train_dp
+    out = []
+    for seed, records in items:
+        out.append(train_dp.check(c, seed, records, torch.device(device)))
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dp_train_readings(c, runs, devices) -> list:
+    """The data-parallel training cell's readings of its checked steps (no
+    window) for each of `runs` [(kind, seed, plant)]: the ranks spawned
+    once for all of them, each run's plant planted in every rank while it
+    runs (`faults.training_rank`); then the references, run i's on
+    `devices[i % len(devices)]`, one process a device."""
+    from benchmark import train_dp
+    from benchmark.tests import faults
+    target = train_dp.rank_main
+    train_dp.rank_main = functools.partial(faults.training_rank,
+                                           [p for _, _, p in runs])
+    try:
+        records = train_dp.spawn(c, [(seed, 0.0) for _, seed, _ in runs],
+                                 False, devices[0].split(":")[0])
+    finally:
+        train_dp.rank_main = target
+    items = [(seed, rec) for (_, seed, _), rec in zip(runs, records)]
+    if len(devices) == 1:
+        return _checks(c, items, devices[0])
+    ctx = mp.get_context("spawn")
+    procs, conns = [], []
+    for i, device in enumerate(devices):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=_check_part, args=(
+            child, c, items[i::len(devices)], device))
+        p.start()
+        child.close()
+        procs.append(p)
+        conns.append(parent)
+    try:
+        parts = []
+        for conn in conns:
+            tag, msg = conn.recv()
+            if tag != "ok":
+                raise common.BenchError(f"a reference failed:\n{msg}")
+            parts.append(msg)
+    finally:
+        common.end_processes(procs)
+    return [parts[i % len(devices)][i // len(devices)]
+            for i in range(len(runs))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -99,7 +170,9 @@ def main() -> int:
                     help="comma-separated faults to plant, or 'all'")
     args = ap.parse_args()
     common.setup_process()
-    common.require_cards(1)
+    c = common.cell(args.workload)
+    cards = c["entry"]["chips"]
+    common.require_cards(cards)
     import numpy as np
     import torch
 
@@ -107,8 +180,8 @@ def main() -> int:
     from benchmark.tests import faults
     from mot3d_tpu_torch.ops.cuda.build import build
     build()
-    c = common.cell(args.workload)
     serving = c["traffic"]["kind"] == "sequences"
+    ranks = c["traffic"].get("ranks", 1)
     dev = torch.device("cuda")
     out = ROOT / "chiprun_out" / f"calibrate-{args.workload}.jsonl"
     pairs = ROOT / "chiprun_out" / "pairs" / args.workload
@@ -126,10 +199,20 @@ def main() -> int:
 
     runs = [("program", s, "") for s in range(args.seeds)]
     runs += [(CONTROL, s, CONTROL) for s in range(args.control_seeds)]
-    chosen = (faults.SERVE if serving else faults.TRAIN) \
-        if args.faults == "all" else [f for f in args.faults.split(",") if f]
+    every = faults.SERVE if serving else \
+        faults.TRAIN_DP if ranks > 1 else faults.TRAIN
+    chosen = every if args.faults == "all" else \
+        [f for f in args.faults.split(",") if f]
     runs += [(f"fault:{f}", s, f) for f in chosen
              for s in range(args.control_seeds)]
+    if ranks > 1:
+        runs = [(kind, args.first + 7919 * s, plant)
+                for kind, s, plant in runs]
+        t0 = time.perf_counter()
+        got = dp_train_readings(c, runs, [f"cuda:{i}" for i in range(cards)])
+        for (kind, seed, _), r in zip(runs, got):
+            emit(kind, seed, r, t0)
+        return 0
     for kind, s, plant in runs:
         seed = args.first + 7919 * s
         t0 = time.perf_counter()

@@ -373,6 +373,19 @@ def card_identity() -> dict:
             "not read"}
 
 
+def end_processes(procs: list, timeout: float = 120.0) -> None:
+    """Wait for each spawned process, killing one still alive after
+    `timeout` s, then end multiprocessing's resource tracker, which
+    spawning started, so that a run leaves no process behind."""
+    from multiprocessing import resource_tracker
+    for p in procs:
+        p.join(timeout=timeout)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    resource_tracker._resource_tracker._stop()
+
+
 def forbidden_loaded() -> list:
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in FORBIDDEN)

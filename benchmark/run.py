@@ -64,7 +64,8 @@ def result_line(c, args, res, readings, ident) -> dict:
     if "never_came" in readings:
         limits["never_came"] = 0
     ok, compared = judge(readings, limits)
-    device = {"platform": "gpu", "kind": ident["kind"], "count": 1,
+    device = {"platform": "gpu", "kind": ident["kind"],
+              "count": res.get("cards", 1),
               "memory_peak_bytes": int(res["memory_peak_bytes"]),
               "power_limit": ident["power_limit"]}
     line = {"correct": bool(ok), "attempted": int(res["attempted"]),
@@ -101,7 +102,8 @@ def trace_context(c: dict, res: dict) -> dict:
     """What the per-layer readers read: the merged profile of the traced
     span, the profile of the calls one client made alone after the window
     (its kernels and their counted work), stage times, rates and the
-    frozen FLOP counts."""
+    frozen FLOP counts.  A data-parallel run's merged profile is its
+    first rank's."""
     from benchmark import profiling
     if "results" in res:
         summaries = [r["trace"] for r in res["results"]]
@@ -112,12 +114,19 @@ def trace_context(c: dict, res: dict) -> dict:
         summaries = [res["trace"]]
         stage_s, stage_calls = {}, 0
     merged = profiling.merge(summaries)
-    window = merged["window_s"]
+    busy, window = merged["busy_s"], merged["window_s"]
+    if res.get("card_traces"):
+        # One profile per card (data-parallel ranks): the busy and window
+        # seconds of each card alone, averaged over the cards; kernels,
+        # calls and gaps are the first card's.
+        cards = [profiling.merge([s]) for s in res["card_traces"]]
+        busy = sum(m["busy_s"] for m in cards) / len(cards)
+        window = sum(m["window_s"] for m in cards) / len(cards)
     return {"merged": merged, "solo": res.get("solo"), "stage_s": stage_s,
             "stage_calls": stage_calls, "rate": res["plain_rate"],
             "flops": c["config"]["flops"], "traffic": c["traffic"],
-            "busy_s": merged["busy_s"], "window_s": window,
-            "occupancy": merged["busy_s"] / window if window else None}
+            "busy_s": busy, "window_s": window,
+            "occupancy": busy / window if window else None}
 
 
 def main(argv=None) -> int:

@@ -338,15 +338,7 @@ def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
             r.update(done)
         check_s = time.perf_counter() - end
     finally:
-        for p in procs:
-            p.join(timeout=120)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        # Spawning started multiprocessing's resource tracker: end it too,
-        # and wait for it, so that the run leaves no process behind.
-        from multiprocessing import resource_tracker
-        resource_tracker._resource_tracker._stop()
+        common.end_processes(procs)
     frames = c["config"]["config"]["tracking"]["seq_len"]
     done = [(t0, t1) for r in results for t0, t1 in r["calls"] if t1 <= end]
     lat = [(t1 - t0) * 1e3 for t0, t1 in done]

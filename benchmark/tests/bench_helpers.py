@@ -1,7 +1,7 @@
 """Helpers of the benchmark's CPU tests: a whole run of a tiny cell on the
 CPU (the harness's look for a card skipped), judged as `run.py` judges
 it, with a fault or control planted where the run builds its step or
-its trainer (`faults.py`)."""
+its trainer (`faults.py`); the data-parallel cell on 2 gloo ranks."""
 
 from __future__ import annotations
 
@@ -64,3 +64,42 @@ def train_run(plant=""):
                         t_process=time.perf_counter())
     ok, compared = run.judge(res["readings"], c["workload"]["limits"])
     return ok, compared, res["readings"], res
+
+
+DP_CELL = ("train.det.gn.dp4", "r50fpn-gn")
+
+
+@contextlib.contextmanager
+def one_thread():
+    """The reference on one host thread, as the ranks and a run's parent
+    (`common.setup_process`) compute: on the CPU a convolution's sums then
+    run in the same order on both sides."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def train_dp_run(seconds=1.0, ranks=2):
+    """(correct, compared, readings, result) of a tiny data-parallel
+    training run on the CPU, `ranks` gloo ranks."""
+    c = tiny_cell(*DP_CELL, ranks=ranks)
+    with one_thread():
+        res = train.run(c, SEED, seconds, False, device="cpu",
+                        t_process=time.perf_counter())
+    ok, compared = run.judge(res["readings"], c["workload"]["limits"])
+    return ok, compared, res["readings"], res
+
+
+def train_dp_planted(plants, ranks=2):
+    """[(correct, compared, readings)] of the data-parallel cell's checked
+    steps on the CPU for each of `plants` (a fault or control, "" for
+    none), every job on the same `ranks` gloo ranks (no window)."""
+    from benchmark import calibrate
+    c = tiny_cell(*DP_CELL, ranks=ranks)
+    runs = [(p, SEED + 7919 * i, p) for i, p in enumerate(plants)]
+    with one_thread():
+        got = calibrate.dp_train_readings(c, runs, ["cpu"])
+    return [run.judge(r, c["workload"]["limits"]) + (r,) for r in got]

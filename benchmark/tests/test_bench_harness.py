@@ -257,3 +257,39 @@ def test_bench_refuses_to_run_without_the_program(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
+
+
+def test_bench_data_parallel_result_line_reads_each_card_alone():
+    """Four ranks' profiles: busy and window seconds per card, averaged,
+    never their union; kernels, launches and NCCL time the first rank's;
+    the card count is the ranks'."""
+    c = common.cell("train.det.gn.dp4")
+    cards = []
+    for r in range(4):
+        s = _fake_summary()
+        s["kernels"] = {"ncclDevKernel_AllReduce_Sum_f32_RING_LL": [2, 4e-3],
+                        "gemm": [10, 2e-3]}
+        s["labels"] = ["step"]
+        s["device"] = np.array([[0.0, 100.0 * (r + 1)]])
+        cards.append(s)
+    res = {"attempted": 10, "memory_peak_bytes": 123, "setup_s": 30.0,
+           "train_images_per_s": 80.0, "plain_rate": 10.0, "cards": 4,
+           "trace": cards[0], "card_traces": cards}
+    readings = {k: 0.0 for k in c["workload"]["limits"]}
+    ident = {"kind": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}
+    line = run.result_line(c, type("A", (), {"trace": 1})(), res, readings,
+                           ident)
+    assert line["correct"] is True
+    assert line["device"]["count"] == 4
+    assert line["device"]["window_s"] == pytest.approx(500e-6)
+    assert line["device"]["busy_s"] == pytest.approx(250e-6)
+    m = line["metrics"]
+    assert m["allreduce_ms.train"]["value"] == pytest.approx(2.0)
+    assert m["launches_per_step.train"]["value"] == 6.0
+    assert m["device_idle.train"]["value"] == pytest.approx(50.0)
+    assert set(m) == {"mfu.train", "launches_per_step.train",
+                      "device_idle.train", "allreduce_ms.train"}
+    plain = run.result_line(c, type("A", (), {"trace": 0})(), res, readings,
+                            ident)
+    assert set(plain["metrics"]) == {"train_images_per_s", "setup_s"}
+    assert "replica_gap" in plain["compared"]

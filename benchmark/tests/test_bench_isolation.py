@@ -17,10 +17,11 @@ ROOT = BENCH.parent
 EXERCISE = """
 import json, sys
 sys.path.insert(0, {root!r})
-from benchmark.tests.bench_helpers import serve_run, train_run
+from benchmark.tests.bench_helpers import serve_run, train_run, train_dp_run
 from benchmark import common
 serve_run(clients=1, seconds=0.5)
 train_run()
+train_dp_run(seconds=0.5)
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -68,6 +69,7 @@ def test_bench_reference_imports_nothing_of_the_program():
     reached = {Path(f).resolve(): names for f, names in
                reference_sources(_reference_roots()).items()}
     assert BENCH / "reference/models/resnet_fpn.py" in reached
+    assert BENCH / "reference/dp_steps.py" in files
     assert BENCH / "tests/toyref/detector.py" in reached
     files.update(reached)
     for f, names in files.items():

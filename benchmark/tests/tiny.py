@@ -40,8 +40,9 @@ def tiny_config(name: str = "r50fpn-gn") -> dict:
 
 
 def tiny_cell(name: str, config: str, limits: dict | None = None,
-              clients: int = 2) -> dict:
-    """A cell dict as `common.cell` returns it, on the tiny config."""
+              clients: int = 2, ranks: int = 1) -> dict:
+    """A cell dict as `common.cell` returns it, on the tiny config;
+    training over `ranks` data-parallel ranks where that is above 1."""
     serve = name.startswith("serve")
     traffic = ({"kind": "sequences", "clients": clients, "pool": 2,
                 "objects": 2, "pan_m": 0.02,
@@ -52,6 +53,8 @@ def tiny_cell(name: str, config: str, limits: dict | None = None,
                 "objects": 2, "pan_m": 0.02,
                 "trace_window": {"profile_from": 0.5,
                                  "profile_seconds": 0.5}})
+    if ranks > 1:
+        traffic["ranks"] = ranks
     work = json.loads((HERE / "workloads" / f"{name}.json").read_text())
     if serve:
         work["check"].update(first_calls=2, per_client=1)

@@ -9,7 +9,9 @@ inputs it asks for and the rest are their parameters.
   camera that pans by `pan_m` per frame; one sequence per call.
 - `detection_batches`: training batches of `batch` frames, `pool` of them,
   each frame a different frame of a synthetic sequence with its masks,
-  voxels and NOCS targets (`train_frames`).
+  voxels and NOCS targets (`train_frames`).  With `ranks` > 1 that many
+  data-parallel ranks share the pool, `batch` frames each a step
+  (`train_dp.batch_index`).
 
 The same seed gives the same inputs; every seed gives the same sizes.
 The scene is a copy of the port's smoke run's (`chip_smoke.py:_sequence`

@@ -3,11 +3,14 @@ state), driven from the seed's weights through its first three steps in
 set-up, which the check follows, and then stepped back to back for the
 window on the traffic's pool of batches, each step with sampler draws the
 benchmark makes.  Batches travel as `DetectionTrainer.train` feeds them:
-compact (uint8 image, bool masks and voxels) and already on the card."""
+compact (uint8 image, bool masks and voxels) and already on the card.
+A traffic with `ranks` > 1 trains data-parallel, one process per card
+(`train_dp.py`)."""
 
 from __future__ import annotations
 
 import gc
+import inspect
 import shutil
 import tempfile
 import time
@@ -34,23 +37,80 @@ def draw_shapes(conf: dict) -> tuple:
             det.num_proposals_train() + cfg.detection.max_instances)
 
 
-def make_trainer(cfg, scratch: str, device, params: dict):
+def device_pool(host: list, dev) -> list:
+    """The traffic's batches as the program's `DetectionSample`s on
+    `dev`."""
+    import torch
+
+    from mot3d_tpu_torch.data.detection_loader import DetectionSample
+    return [DetectionSample(**{f: (torch.from_numpy(b[f]).to(dev)
+                                   if f in b else None)
+                               for f in DetectionSample._fields})
+            for b in host]
+
+
+def make_trainer(cfg, scratch: str, device, params: dict, mesh=None):
     """The program's `DetectionTrainer` with its model and AdamW state, on
-    the given weights."""
+    the given weights.  On a data mesh (`parallel/mesh.py:DataMesh`) every
+    rank starts from rank 0's weights and averages the ranks' gradients
+    before each AdamW step with the program's `replicate` and
+    `all_mean_grads`, as the program's mesh steps do between their
+    backward pass and their update; a trainer that takes `mesh=` is given
+    the mesh instead and does both itself."""
+    from mot3d_tpu_torch.parallel import mesh as meshes
     from mot3d_tpu_torch.train.detection_trainer import DetectionTrainer
+    if mesh is not None and \
+            "mesh" in inspect.signature(DetectionTrainer).parameters:
+        trainer = DetectionTrainer(cfg, scratch, device=device, mesh=mesh)
+        trainer.init_state(params=params)
+        return trainer
     trainer = DetectionTrainer(cfg, scratch, device=device)
     trainer.init_state(params=params)
+    if mesh is not None:
+        meshes.replicate(mesh, trainer.model)
+        grads = list(trainer.model.parameters())
+        trainer.state.optimizer.register_step_pre_hook(
+            lambda opt, args, kwargs: meshes.all_mean_grads(mesh, grads))
     return trainer
+
+
+def checked_steps(step, model, opt) -> dict:
+    """Set-up: the first CHECKED_STEPS steps (`step(k)` -> (losses,
+    draws)), which the check follows; they warm every shape.  Keeps each
+    step's losses and draws, the proposals the program selected (the
+    reference takes them: see `reference_steps`) and, after the first
+    step, the norms of the gradients AdamW was given."""
+    from benchmark import compare
+    from mot3d_tpu_torch.models import mask_rcnn as prog_rcnn
+    prog = {"losses": [], "draws": [], "proposals": []}
+    select = prog_rcnn.select_proposals
+
+    def kept_proposals(*args, **kwargs):
+        out = select(*args, **kwargs)
+        prog["proposals"].append(tuple(x.detach().clone() for x in out))
+        return out
+    prog_rcnn.select_proposals = kept_proposals
+    try:
+        for k in range(CHECKED_STEPS):
+            losses, draws = step(k)
+            prog["draws"].append(tuple(x.clone() for x in draws))
+            prog["losses"].append({n: float(v) for n, v in losses.items()})
+            if k == 0:
+                prog["grads"] = compare.first_grads(model, opt)
+    finally:
+        prog_rcnn.select_proposals = select
+    return prog
 
 
 def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
         t_process: float = 0.0) -> dict:
+    if c["traffic"].get("ranks", 1) > 1:
+        from benchmark import train_dp
+        return train_dp.run(c, seed, seconds, trace, device, t_process)
     import torch
 
     from benchmark import compare
     from benchmark import profiling as tr
-    from mot3d_tpu_torch.data.detection_loader import DetectionSample
-    from mot3d_tpu_torch.models import mask_rcnn as prog_rcnn
     from mot3d_tpu_torch.models.mask_rcnn import DetectionDraws
 
     conf, traf = c["config"], c["traffic"]
@@ -64,10 +124,7 @@ def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
     trainer = make_trainer(cfg, scratch, dev, w_det)
     del w_det
     host = traffic_gen.detection_batches(seed, traf, data)
-    pool = [DetectionSample(**{f: (torch.from_numpy(b[f]).to(dev)
-                                   if f in b else None)
-                               for f in DetectionSample._fields})
-            for b in host]
+    pool = device_pool(host, dev)
     b = traf["batch"]
     anchors, rois = draw_shapes(conf)
     gen = torch.Generator(device=dev).manual_seed(seed % (2 ** 63))
@@ -76,29 +133,10 @@ def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
         draws = draws_for(gen, b, anchors, rois, dev, DetectionDraws)
         return trainer.train_step(pool[k % len(pool)], draws), draws
 
-    # Set-up: the first steps, which the check follows, warm every shape.
-    # Their proposals are kept: the reference takes them (see compare.py).
     model, opt = trainer.model, trainer.state.optimizer
-    prog = {"losses": []}
-    kept_draws, proposals = [], []
-    select = prog_rcnn.select_proposals
-
-    def kept_proposals(*args, **kwargs):
-        out = select(*args, **kwargs)
-        proposals.append(tuple(x.detach().clone() for x in out))
-        return out
-    prog_rcnn.select_proposals = kept_proposals
-    try:
-        for k in range(CHECKED_STEPS):
-            losses, draws = step(k)
-            kept_draws.append(tuple(x.clone() for x in draws))
-            prog["losses"].append({n: float(v) for n, v in losses.items()})
-            if k == 0:
-                prog["grads"] = compare.first_grads(model, opt)
-    finally:
-        prog_rcnn.select_proposals = select
+    prog = checked_steps(step, model, opt)
+    kept_draws, proposals = prog.pop("draws"), prog["proposals"]
     prog["changes"] = compare.changes(model, start_params)
-    prog["proposals"] = proposals
     del start_params
     sync()
     if dev.type == "cuda":
@@ -153,17 +191,20 @@ def run(c: dict, seed: int, seconds: float, trace: bool, device="cuda",
 
 
 def reference_steps(conf: dict, seed: int, host: list, draws: list,
-                    proposals: list, dev) -> dict:
+                    proposals: list, dev, ranks: int = 1) -> dict:
     """The reference's first steps from the same weights, batches and
-    draws, in float32 with TF32 off.  Each step takes the proposals the
-    program selected at that step and keeps its own beside them: the
-    selection (top-k and NMS on the RPN's scores) turns the last digits of
-    the scores into different proposal sets, and the ROI losses then
-    differ by the sampling and not by the arithmetic."""
+    draws, in float32 with TF32 off.  Each forward takes the proposals the
+    program selected in it and keeps its own beside them: the selection
+    (top-k and NMS on the RPN's scores) turns the last digits of the
+    scores into different proposal sets, and the ROI losses then differ by
+    the sampling and not by the arithmetic.  With `ranks` > 1, `host[k]`
+    and `draws[k]` list every rank's batch and draws of step k, each step
+    is the reference's data-parallel step (`reference/dp_steps.py`), and
+    `proposals` follow step by step in rank order."""
     import torch
 
     from benchmark import compare
-    from benchmark.reference import steps
+    from benchmark.reference import dp_steps, steps
 
     refs, cfg, det, _ = common.reference_models(conf, dev)
     w_det, _ = common.model_weights(conf, seed, dev)
@@ -184,9 +225,14 @@ def reference_steps(conf: dict, seed: int, host: list, draws: list,
     try:
         with steps.true_fp32():
             for k, d in enumerate(draws):
-                out["losses"].append(steps.train_step(
-                    det, opt, sched, host[k],
-                    refs.detector.DetectionDraws(*d), dev))
+                if ranks > 1:
+                    out["losses"].append(dp_steps.train_step(
+                        det, opt, sched, host[k],
+                        [refs.detector.DetectionDraws(*x) for x in d], dev))
+                else:
+                    out["losses"].append(steps.train_step(
+                        det, opt, sched, host[k],
+                        refs.detector.DetectionDraws(*d), dev))
                 if k == 0:
                     out["grads"] = compare.leaf_norms(
                         {n: p.grad for n, p in det.named_parameters()})
